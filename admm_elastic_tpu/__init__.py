@@ -1,11 +1,11 @@
-"""admm_elastic_tpu — TPU-native ADMM elastodynamics framework.
+"""admm_elastic_tpu — ADMM elastodynamics framework in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
 "ADMM (superset of) Projective Dynamics" solver (SCA 2016 reference at
 mattoverby/admm-elastic-sca): implicit time integration of elastic bodies
 (cloth, tet volumes, springs, bending hinges, pins, collisions) via ADMM
 with batched per-element local proximal steps and a matrix-free or
-MXU-dense global step, designed for single-chip speed and multi-chip
+dense global step, designed for single-device speed and multi-device
 sharding (jax.sharding / shard_map) from the start.
 
 Layout:
@@ -20,9 +20,8 @@ Layout:
 """
 
 from .core.system import System, Settings
-from .core.lattice import LatticeStepper
 from . import models, geometry, ops
 
 __version__ = "0.1.0"
 
-__all__ = ["System", "LatticeStepper", "Settings", "models", "geometry", "ops"]
+__all__ = ["System", "Settings", "models", "geometry", "ops"]

@@ -1,8 +1,8 @@
 """Aggregation-AMG preconditioner for the global-step PCG.
 
 The reference solves the global step EXACTLY with a prefactored sequential
-SimplicialLDLT (/root/reference/deps/admm-elastic-sca/src/system/System.cpp:140,62).
-The TPU replacement is matrix-free Jacobi-PCG — but A_hat = M + dt² Dᵀ W² D
+SimplicialLDLT (System.cpp:140,62). The iterative replacement is Jacobi-PCG
+— but A_hat = M + dt² Dᵀ W² D
 is stiffness-dominated (dt²·k·vol·‖B‖² ≫ m on production materials), i.e. a
 graph-Laplacian-like operator whose low-frequency error modes need
 O(mesh diameter) Jacobi-PCG iterations: a matched-residual solve on a
@@ -10,12 +10,12 @@ O(mesh diameter) Jacobi-PCG iterations: a matched-residual solve on a
 beam needs 25 (measured in tools/residual_match.py --delaunay). An
 algebraic-multigrid V-cycle removes the diameter dependence — every cycle
 contracts ALL error frequencies — and, built on aggregates, it uses only
-TPU-native primitives:
+gathers, segment sums and small dense products:
 
   * smoothing        — damped Jacobi: one ELL matvec (gather + fma)
   * restriction      — segment-sum of residuals over aggregate ids
   * prolongation     — a gather of the coarse correction
-  * coarsest solve   — one dense (nc,nc)@(nc,3) MXU matmul (precomputed
+  * coarsest solve   — one dense (nc,nc)@(nc,3) matmul (precomputed
                        inverse, nc ≤ coarse_max)
 
 The cycle (symmetric: one pre- and one post-smoothing sweep with the same

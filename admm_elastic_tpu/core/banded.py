@@ -1,28 +1,26 @@
-"""Banded-mesh fast path: whole-timestep single-kernel ADMM for ARBITRARY
-banded tet meshes with per-element materials.
+"""Banded tet layout: host-side packing of a tet mesh whose vertex
+numbering keeps the global matrix on a bounded set of diagonals (or, for
+arbitrary topology, on per-row-offset ELL slots — core/uell.py), for the
+whole-timestep XLA program of parallel/banded_spmd.ShardedBandedStepper.
 
-Generalizes the lattice fast path (core/lattice.py): no constant-offset
-selector structure is required, only that the vertex numbering keeps the
-global matrix's sparsity on a bounded set of diagonals (the same condition
-as the single-kernel dia CG) and that each element's vertices fit a bounded
-window of the numbering (elements sorted by minimum vertex index).
-
-Host-side preparation (this module) packs the mesh for the kernel
-(ops/pallas/banded_step.py):
+Elements are packed so that the per-iteration gather and scatter of every
+element's four vertices are window scans plus lane permutations with no
+conflicting writes:
 
 1. `place_elements` sorts tets by min vertex index and packs them into
    sub-blocks of 128 with DISTINCT target lanes per corner slot — the
-   property that turns the kernel's scatter into a conflict-free lane
-   permutation. Packing is a sequential first-fit greedy with a 4x4
-   corner->slot matching per element (corner order within a tet is a
-   dummy index, so relabeling is free); a bounded lookback keeps
-   elements near their sorted position, bounding the vertex window.
+   property that turns the scatter into a conflict-free lane permutation.
+   Packing is a sequential first-fit greedy with a 4x4 corner->slot
+   matching per element (corner order within a tet is a dummy index, so
+   relabeling is free); a bounded lookback keeps elements near their
+   sorted position, bounding the vertex window.
 2. Sub-blocks are grouped 64 per chunk; per-chunk vertex windows (base row
    + static width Wr) cover every referenced vertex.
 3. Per-chunk planes: selector coefficients, w2/mu/lam/k, window row/lane
    decompositions of the corner indices, the scatter lane permutation and
-   its permuted target rows (see banded_step.py FB plane map).
+   its permuted target rows (the FB plane map below).
 
+Vertex planes are (Nr, 128) blocks: vertex i at row i // 128, lane i % 128.
 Trajectories match the general System dia path to round-off
 (tests/test_banded.py).
 """
@@ -38,6 +36,52 @@ LANES = 128
 SUB = 64            # sub-blocks per chunk (chunk = 8192 elements)
 MAX_WR = 40         # max vertex-window rows (gather scan length bound)
 MAX_DIAGONALS = 48  # same budget as the dia solver
+
+# FB (static per-chunk block) plane layout — each plane is SUB rows.
+# float planes: 0-11 cp[4b+k], 12 w2, 13 mu, 14 lam, 15 k(prox);
+# index planes (stored as exact small float values): 16-19 rr[k] (window
+# row of corner k), 20-23 cc[k] (lane of corner k), 24-27 P[k] (scatter
+# lane permutation: out-lane -> element lane), 28-31 rrp[k] (window row of
+# the PERMUTED targets; -1 marks a pad lane that receives nothing).
+FB_PLANES = 32
+CP0, W2P, MUP, LAMP, KP = 0, 12, 13, 14, 15
+RRP0, CCP0, PP0, RRPP0 = 16, 20, 24, 28
+
+# DB (dual block) planes: 0-8 u (row-major F planes), 9-11 warm sigma.
+DB_PLANES = 12
+
+# P2D (packed vertex-plane input) planes: aw2, invd, mass, vmask, ancz xyz.
+PAW2, PINVD, PMASS, PVM, PANCZ = 0, 1, 2, 3, 4
+P2D_PLANES = 7
+
+
+def shifted(xp, off):
+    """out[i] = x[i + off] (flat index i = 128 r + l, zero fill) on an
+    (R, 128) plane: a lane roll by off % 128 combined with two row shifts
+    (lanes that wrap the 128 boundary read the next row)."""
+    if off == 0:
+        return xp
+    R = xp.shape[0]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
+    z = lambda q: jnp.zeros((min(q, R), LANES), xp.dtype)  # noqa: E731
+
+    def up(x, q):  # out[r] = x[r + q]
+        return x if q == 0 else jnp.concatenate([x[q:], z(q)], 0)[:R]
+
+    def down(x, q):  # out[r] = x[r - q]
+        return x if q == 0 else jnp.concatenate([z(q), x[:R - q]], 0)[:R]
+
+    if off > 0:
+        q, s = divmod(off, LANES)
+        t = jnp.roll(xp, LANES - s, axis=1) if s else xp
+        if s == 0:
+            return up(t, q)
+        return jnp.where(lane < LANES - s, up(t, q), up(t, q + 1))
+    q, s = divmod(-off, LANES)
+    t = jnp.roll(xp, s, axis=1) if s else xp
+    if s == 0:
+        return down(t, q)
+    return jnp.where(lane >= s, down(t, q), down(t, q + 1))
 
 
 MAX_OPEN = 16  # greedy lookback in blocks (bounds window skew)
@@ -81,7 +125,7 @@ def place_elements(idx):
     Sequential first-fit greedy over the sorted order with a 4x4 slot
     matching per candidate block; a lookback bound keeps every element
     near its sorted position, bounding the per-chunk vertex window. When
-    the WHOLE mesh fits in the kernel's MAX_WR-row gather window there is
+    the WHOLE mesh fits in the MAX_WR-row gather window there is
     no skew cost, so the lookback is unlimited (this is what keeps
     small/medium meshes tightly packed: their padding is driven by
     lane-class capacity, not ordering)."""
@@ -127,7 +171,8 @@ def place_elements(idx):
 
 
 class BandedStepper:
-    """Single-kernel ADMM stepper for banded tet meshes.
+    """Packed banded layout of one tet scene (the single-device input of
+    parallel/banded_spmd.ShardedBandedStepper, which steps it).
 
     Matches System dia-path semantics for: one tet force — NeoHookean/StVK
     `HyperElasticTet` (per-element mu/lam, `newton_iters` warm-started
@@ -151,8 +196,7 @@ class BandedStepper:
                  cg_iters=25, dtype=jnp.float32,
                  floor_y=None, floor_w2=0.0,
                  coll_shapes=None, coll_w2=None,
-                 positions=None, uell=None, collect_residuals=False,
-                 mg=None, uamg=None):
+                 positions=None, uell=None, collect_residuals=False):
         v = np.asarray(vertices, np.float64)
         n = len(v)
         E = len(tet_idx)
@@ -163,22 +207,15 @@ class BandedStepper:
         self.newton_iters = int(newton_iters)
         self.dtype = dtype
         self.model = str(model)
-        # in-kernel per-iteration residual emission: "primal" emits the
-        # primal residual (near-free: dual-update identity over planes
-        # already in registers); True additionally emits the DUAL
-        # residual via a second scatter accumulation
+        #: per-iteration residual collection: "primal" (the dual-update
+        #: identity over planes already computed) or True (primal + dual)
         self.collect_residuals = (
             collect_residuals if collect_residuals in (True, "primal")
             else bool(collect_residuals)
         )
-        #: (n_steps, admm_iters) primal residuals of the last step()/run()
-        #: window when collect_residuals is on
-        self.last_primal = None
-        #: (n_steps, admm_iters) dual residuals (collect_residuals=True)
-        self.last_dual = None
         self.gravity = tuple(float(q) for q in gravity)
         # static analytic collision shapes, declaration-order projected
-        # in-kernel (floor/sphere/cylinder); floor_y/floor_w2 are the
+        # (floor/sphere/cylinder); floor_y/floor_w2 are the
         # single-floor sugar form
         if coll_shapes is None:
             coll_shapes = ((("floor", (float(floor_y),)),)
@@ -191,7 +228,7 @@ class BandedStepper:
         if self.model not in ("nh", "stvk", "arap"):
             raise ValueError(f"unknown banded model {self.model!r}")
         if len(dia_offs) > MAX_DIAGONALS:
-            raise ValueError("too many diagonals for the banded kernel")
+            raise ValueError("too many diagonals for the banded layout")
 
         idx = np.asarray(tet_idx, np.int64).reshape(E, 4)
         coeff = np.asarray(tet_coeff, np.float64).reshape(E, 3, 4)
@@ -226,8 +263,7 @@ class BandedStepper:
         subs = np.pad(subs, ((0, n_chunks * SUB - n_sub), (0, 0)),
                       constant_values=-1)
         self.n_chunks = n_chunks
-        # chunk -> element-id map (pads -1), kept for per-scenario
-        # material-plane refills (core/sweep.SweepStepper)
+        # chunk -> element-id map (pads -1)
         self._subs = subs.reshape(n_chunks, SUB, LANES)
 
         rbase = np.zeros(n_chunks, np.int32)
@@ -245,15 +281,11 @@ class BandedStepper:
         if Wr > MAX_WR:
             raise ValueError(
                 f"vertex window {Wr} rows exceeds MAX_WR={MAX_WR} — "
-                "numbering bandwidth too large for the banded kernel"
+                "numbering bandwidth too large for the banded layout"
             )
         self.Wr = Wr
 
-        # ---- per-chunk static planes (banded_step.FB layout)
-        from ..ops.pallas.banded_step import (
-            CCP0, CP0, FB_PLANES, KP, LAMP, MUP, PP0, RRP0, RRPP0, W2P,
-        )
-
+        # ---- per-chunk static planes (FB layout)
         fblk = np.zeros((n_chunks, FB_PLANES * SUB, LANES), np.float64)
         for c in range(n_chunks):
             block = subs[c * SUB : (c + 1) * SUB]  # (SUB, 128)
@@ -328,7 +360,7 @@ class BandedStepper:
             # per-row-offset ELL + fold planes (core/uell.py): val planes
             # (full precision — the CG solution error scales with
             # cond(A_hat) times any value quantization, so lossy storage
-            # is NOT acceptable) stacked into the dia slot of the kernel;
+            # is NOT acceptable) stacked into the dia slot of the layout;
             # 7-bit lane indices packed four per int32 word (lossless)
             self.dia_offs = ()
             all_planes = list(uell["slots"]) + [
@@ -359,71 +391,6 @@ class BandedStepper:
                     np.concatenate(ccs, 0), jnp.int32
                 )
 
-        # ---- in-kernel multigrid preconditioner planes: geometric
-        # (core/mg.build_grid_mg; dia mode) or algebraic
-        # (core/uamg.build_uamg; uell mode)
-        self._mg_meta_static = None
-        self._uamg_meta_static = None
-        self._mgf = self._mgi = self._a2b = None
-        if uamg is not None:
-            assert uell is not None, "in-kernel algebraic MG: uell mode"
-            assert mg is None
-            up, um = uamg
-            self._mgf = jnp.asarray(np.concatenate([
-                up["om_invd0"],
-                up["r0_mask"].reshape(-1, LANES),
-                up["p0_mask"].reshape(-1, LANES),
-                up["om_invd1"],
-                up["vmask1"],
-                up["r1_mask"].reshape(-1, LANES),
-                up["p1_mask"].reshape(-1, LANES),
-                up["l1_vals"].reshape(-1, LANES),
-            ], 0), dtype)
-            self._mgi = jnp.asarray(np.concatenate([
-                up["r0_idx"].reshape(-1, LANES),
-                up["p0_idx"].reshape(-1, LANES),
-                up["r1_idx"].reshape(-1, LANES),
-                up["p1_idx"].reshape(-1, LANES),
-                up["l1_cc"].reshape(-1, LANES),
-            ], 0).astype(np.int32))
-            self._a2b = jnp.asarray(
-                up["a2inv_blocks"].reshape(-1, LANES), dtype
-            )
-            self._uamg_meta_static = (
-                tuple(um["segs0"]), tuple(um["segs1"]),
-                tuple(um["l1_slot_qs"]),
-                tuple(tuple(l) for l in um["l1_fold_qs"]),
-                int(um["np2"]), int(um["nc_rows"]),
-            )
-        if mg is not None:
-            assert uell is None, "in-kernel MG: dia mode only"
-            mgp, mgm = mg
-
-            def pl2d(flat):
-                return np.asarray(flat, np.float64).reshape(-1, LANES)
-
-            self._mgf = jnp.asarray(np.concatenate([
-                pl2d(mgp["l1_vals"]),
-                pl2d(mgp["om_invd0"]),
-                pl2d(mgp["om_invd1"]),
-                pl2d(mgp["t0_masks"]),
-                pl2d(mgp["t1_masks"]),
-                mgp["pack_mask"].reshape(-1, LANES),
-                mgp["unpack_mask"].reshape(-1, LANES),
-            ], 0), dtype)
-            self._mgi = jnp.asarray(np.concatenate([
-                mgp["pack_idx"].reshape(-1, LANES),
-                mgp["unpack_idx"].reshape(-1, LANES),
-            ], 0).astype(np.int32))
-            self._a2b = jnp.asarray(
-                mgp["a2inv_blocks"].reshape(-1, LANES), dtype
-            )
-            self._mg_meta_static = (
-                tuple(mgm["l1_offs"]), tuple(mgm["t0_offs"]),
-                tuple(mgm["t1_offs"]),
-                tuple(mgm["rangesA"]), tuple(mgm["rangesB"]),
-            )
-
         def state3(arr):
             arr = np.asarray(arr, np.float64)
             return jnp.asarray(
@@ -442,7 +409,6 @@ class BandedStepper:
             "colu": jnp.zeros((3 * Nr, LANES), dtype),
             "t": jnp.asarray(0.0, dtype),
         }
-        self._rollouts = {}
 
     # ------------------------------------------------------------ access
 
@@ -473,97 +439,11 @@ class BandedStepper:
             v.reshape(3 * self.Nr, LANES), self.dtype
         )
 
-    # ---------------------------------------------------------- stepping
 
-    ROLLOUT_WINDOW = 10
-
-    def _roll_fn(self, n_steps):
-        from ..ops.pallas.banded_step import banded_rollout
-
-        if n_steps not in self._rollouts:
-            dt = self.dt
-            p2d, dia2d, rbase, fblk = (
-                self._p2d, self._dia2d, self._rbase, self._fblk
-            )
-            collect = self.collect_residuals
-            kw = dict(
-                dia_offs=self.dia_offs, model=self.model,
-                newton_iters=self.newton_iters, cg_iters=self.cg_iters,
-                dt=dt, gravity=self.gravity, n_iters=self.admm_iters,
-                Wr=self.Wr, coll_shapes=self.coll_shapes,
-                coll_w2=self.coll_w2, collect_residuals=collect,
-            )
-            if self._uell is not None:
-                kw.update(
-                    ucc2d=self._ucc2d,
-                    uell_slot_qs=self._uell_slot_qs,
-                    uell_fold_qs=self._uell_fold_qs,
-                    uell_packed=self._uell_packed,
-                )
-            if self._mg_meta_static is not None:
-                kw.update(
-                    mgf=self._mgf, mgi=self._mgi, a2b=self._a2b,
-                    mg_meta_static=self._mg_meta_static,
-                )
-            if self._uamg_meta_static is not None:
-                kw.update(
-                    mgf=self._mgf, mgi=self._mgi, a2b=self._a2b,
-                    uamg_meta_static=self._uamg_meta_static,
-                )
-
-            def roll(state):
-                out = banded_rollout(
-                    p2d, dia2d, rbase, fblk, state["x"], state["v"],
-                    state["ancu"], state["colu"], state["d"],
-                    n_steps=n_steps, **kw
-                )
-                x, v, d, au, cu = out[:5]
-                new = {
-                    "x": x, "v": v, "d": d, "ancu": au, "colu": cu,
-                    "t": state["t"] + n_steps * dt,
-                }
-                if collect is True:
-                    return (new, out[5], out[6])
-                return (new, out[5]) if collect else new
-
-            self._rollouts[n_steps] = jax.jit(roll, donate_argnums=(0,))
-        return self._rollouts[n_steps]
-
-    def _advance(self, n_steps):
-        out = self._roll_fn(n_steps)(self.state)
-        if self.collect_residuals is True:
-            self.state, self.last_primal, self.last_dual = out
-        elif self.collect_residuals:
-            self.state, self.last_primal = out
-        else:
-            self.state = out
-
-    def step(self):
-        self._advance(1)
-        return True
-
-    def run(self, n_steps: int):
-        """n_steps timesteps, chunked into ROLLOUT_WINDOW-step kernel
-        calls (remainder as single steps). With collect_residuals,
-        last_primal holds the final window's residuals."""
-        W = self.ROLLOUT_WINDOW
-        full, rem = divmod(n_steps, W)
-        for _ in range(full):
-            self._advance(W)
-        for _ in range(rem):
-            self._advance(1)
-        return True
-
-
-def banded_from_system(system, _pack_vals=None):
-    """Build a BandedStepper equivalent to an initialized dia-mode System
-    when its force set qualifies. Returns (stepper, to_canonical) or None.
-
-    _pack_vals: optional (nnz,) override of the A_hat entry values (in the
-    assembled CSR's data order) used ONLY to pick the uell packing
-    structure (nz filter + slot layout) — sweep builders pass the UNION
-    magnitude over scenarios so the shared structure covers every
-    scenario's pattern.
+def banded_from_system(system):
+    """Build a BandedStepper equivalent to an initialized dia/ell-mode
+    System when its force set qualifies. Returns (stepper, to_canonical)
+    or None.
 
     Qualifying configuration: one tet force (HyperElasticTet nh/stvk or
     LinearTetStrain — per-element materials allowed), StaticAnchors (any
@@ -581,14 +461,14 @@ def banded_from_system(system, _pack_vals=None):
     from ..models.tet import HyperElasticTet, LinearTetStrain
 
     s = system.settings
-    # collect_residuals="primal" emits the primal residual in-kernel
-    # near-free; True emits primal AND dual (second in-kernel scatter
-    # accumulation). Residual-driven early exit needs the general path.
+    # residual-driven early exit, over-relaxation, Anderson, the AMG
+    # preconditioner and per-iteration CG schedules need the general path
     if s.collect_residuals not in (False, None, True, "primal") or (
             s.residual_tol is not None):
         return None
-    # the kernel runs the plain α=1 reference iteration only
-    if s.relaxation != 1.0 or s.acceleration is not None:
+    if (s.relaxation != 1.0 or s.acceleration is not None
+            or s.preconditioner != "jacobi"
+            or isinstance(s.cg_fixed_iters, (tuple, list))):
         return None
     if getattr(system, "_solver_mode", None) not in ("dia", "ell"):
         return None
@@ -657,37 +537,12 @@ def banded_from_system(system, _pack_vals=None):
                   if anchors else np.zeros((0, 3)))
 
     sv = system.params["_solver"]
-    mg = None
-    uamg = None
     if system._solver_mode == "dia":
         dia_offs = system._dia_offsets
         dia_vals = np.asarray(sv["dia_vals"], np.float64)
         diag = np.asarray(sv["diag"], np.float64)
         positions = None
         packed = None
-        if s.preconditioner == "amg":
-            # in-kernel geometric multigrid: exact-solve-MATCHED ADMM at
-            # a small fixed budget (core/mg.py; docs/PERFORMANCE.md
-            # "Matched-residual solves")
-            from .mg import build_grid_mg
-            from .solver import _assemble_A_hat_csr
-
-            cparams = {
-                k: {kk: np.asarray(jax.device_get(vv))
-                    for kk, vv in system.params[k].items()}
-                for k in system._constraint_names
-            }
-            A = _assemble_A_hat_csr(
-                system.n_nodes, system._mi, s.timestep_s, cparams
-            )
-            n_pad = -(-system.n_nodes // (8 * LANES)) * (8 * LANES)
-            mg = build_grid_mg(A, system._xi, n_pad, min_nodes=0)
-            if mg is None:
-                return None  # initialize() raises a config error
-            if s.verbose:
-                lv = mg[1]["levels"]
-                print("Solver: in-kernel multigrid engaged "
-                      f"({lv[0]} -> {lv[1]} -> {lv[2]})")
     else:
         # unstructured numbering: no diagonal structure exists — pack
         # A_hat into per-row-offset ELL slots over a spatially-ordered,
@@ -704,52 +559,14 @@ def banded_from_system(system, _pack_vals=None):
         A = _assemble_A_hat_csr(n, system._mi, s.timestep_s, cparams)
         diag = A.diagonal().copy()
         Ac = A.tocoo()
-        pv = Ac.data if _pack_vals is None else np.asarray(_pack_vals)
-        nz = pv != 0.0  # structural zeros would waste slot planes
+        nz = Ac.data != 0.0  # structural zeros would waste slot planes
         try:
             packed, positions = pack_uell_auto(
-                Ac.row[nz], Ac.col[nz], pv[nz], system._xi)
+                Ac.row[nz], Ac.col[nz], Ac.data[nz], system._xi)
         except ValueError:
             return None
         dia_offs = ()
         dia_vals = np.zeros((0, n))
-        if s.preconditioner == "amg":
-            # in-kernel ALGEBRAIC multigrid: exact-solve-MATCHED ADMM on
-            # ARBITRARY topology at a small fixed budget (core/uamg.py;
-            # docs/PERFORMANCE.md "Matched-residual solves")
-            from .uamg import build_uamg
-
-            try:
-                uamg = build_uamg(A, positions, packed["n_pad"])
-            except ValueError:
-                return None  # caller falls back to the general-path AMG
-            if s.verbose:
-                lv = uamg[1]["levels"]
-                print("Solver: in-kernel algebraic multigrid engaged "
-                      f"({lv[0]} -> {lv[1]} -> {lv[2]}, "
-                      f"{uamg[1]['n_ops'][0]}+{uamg[1]['n_ops'][1]} "
-                      "transfer ops)")
-        # VMEM budget estimate (plus ~45 planes of state/element scratch
-        # and stack); reject and fall back to the general path rather
-        # than fault the chip. The kernel raises the compiler's scoped
-        # cap to ~100 MB (v5e has 128 MB/core), so the budget here is
-        # generous — f32 value planes + packed int32 lane words
-        n_planes = packed["n_slots"] + packed["n_fold_ops"]
-        nr = packed["n_pad"] // 128
-        a_bytes = nr * 128 * (4 * n_planes + 4 * (-(-n_planes // 4)))
-        vmem = a_bytes + 45 * nr * 128 * 4
-        if uamg is not None:
-            up = uamg[0]
-            vmem += sum(
-                int(np.asarray(v_).size) * 4 for v_ in up.values()
-            )
-        if vmem > 85 * 2**20:
-            if s.verbose:
-                print(
-                    f"Solver: uell planes need ~{vmem/2**20:.0f} MB VMEM"
-                    " — banded kernel skipped"
-                )
-            return None
     try:
         stepper = BandedStepper(
             system._xi, system._mi,
@@ -760,8 +577,7 @@ def banded_from_system(system, _pack_vals=None):
             gravity=tuple(gravity), dt=s.timestep_s,
             admm_iters=s.admm_iters,
             cg_iters=(s.cg_fixed_iters
-                      if s.cg_fixed_iters is not None
-                      else (8 if s.preconditioner == "amg" else 25)),
+                      if s.cg_fixed_iters is not None else 25),
             dtype=s.dtype,
             coll_shapes=tuple(
                 ("floor", (float(s_.center[1]),)) if isinstance(s_, Floor)
@@ -778,7 +594,6 @@ def banded_from_system(system, _pack_vals=None):
             collect_residuals=(s.collect_residuals
                                if s.collect_residuals in (True, "primal")
                                else False),
-            mg=mg, uamg=uamg,
         )
     except ValueError:
         return None

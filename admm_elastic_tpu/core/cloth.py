@@ -1,16 +1,16 @@
-"""Cloth fast path: whole-timestep single-kernel ADMM for grid cloth.
+"""Grid-cloth layout: host-side packing of a cloth scene whose faces and
+hinges group into constant-offset stencils, for the whole-timestep XLA
+program of parallel/cloth_spmd.ShardedClothStepper.
 
-ClothStepper runs the same algorithm as a System configured with
+ClothStepper packs the same algorithm as a System configured with
 {LimitedTriangleStrain, Bend, StaticAnchor, gravity (+WindForce),
 global_solver='dia'} on a regular-grid cloth (geometry/make_plane_grid in
-any vertex numbering) — but executes the ENTIRE timestep (explicit kicks,
-all ADMM iterations: triangle/bend local prox steps, dual updates, RHS,
-CG solves) as ONE Pallas kernel (ops/pallas/cloth_step.py), exploiting the
-grid's constant-offset selector structure the same way the tet lattice
-path does (core/lattice.py).
+any vertex numbering): every element of a stencil group is addressed by a
+constant vertex-index offset from its base vertex, so gathers and scatters
+are static shifts of whole vertex planes.
 
 Eligibility is structural, not nominal: faces/hinges are grouped by their
-vertex-index offsets from each element's minimum index; the path engages
+vertex-index offsets from each element's minimum index; the layout applies
 whenever the grouping is small (a handful of offset stencils) and the
 per-group constraint constants are uniform — which is exactly the regular
 grid. Scrambled numberings recover the structure via
@@ -29,16 +29,14 @@ from .solver import assemble_A_hat_dia
 # group budget: sym-plane = 4 tri + 6 hinge stencils; editor-reordered
 # face lists emit BOTH orientations of each hinge class (the Volino
 # element is orientation-dependent, so they cannot be merged) -> up to
-# 4 + 12. Each group costs a handful of staged VMEM planes; 16 fits.
+# 4 + 12. Each group is unrolled into the step program.
 MAX_GROUPS = 16
-# wind staging capacity in the kernel: 3 planes/group in S rows 0-8,
-# plus the (free-at-prologue) b rows for a 4th group — the sym-plane
-# tessellation has 4 triangle stencils
+# the sym-plane tessellation has 4 triangle stencils
 MAX_WIND_GROUPS = 4
-MAX_DIAGONALS = 24  # VMEM budget for the symmetric dia planes
+MAX_DIAGONALS = 24  # symmetric dia planes of the cloth matrix
 
-# in-kernel geometric multigrid stride ladders, tried in preference
-# order (tools/cloth_mg_study.py: PCG-to-1e-10 on the 226x226 cloth
+# geometric multigrid stride ladders (parallel/cloth_spmd solver='mg'),
+# tried in preference order (tools/cloth_mg_study.py: PCG-to-1e-10 on the 226x226 cloth
 # A_hat — (2,4) 32 iters but its coarsest only fits small grids;
 # (2,8) 41 iters; (4,8) 45; (4,16) 58 — vs 600+ for plain Jacobi)
 MG_LADDERS = ((2, 4), (2, 8), (4, 8), (4, 16))
@@ -205,7 +203,8 @@ def _uniform(arr, rel=1e-6):
 
 
 class ClothStepper:
-    """Single-kernel ADMM stepper for constant-offset-groupable cloth.
+    """Packed grid-cloth layout of one scene (the single-device input of
+    parallel/cloth_spmd.ShardedClothStepper, which steps it).
 
     Matches System semantics for: one LimitedTriangleStrain (uniform
     stiffness/limits per stencil group), an optional Bend (uniform alpha
@@ -218,21 +217,15 @@ class ClothStepper:
     def __init__(self, vertices, masses, tri_force, bend_force, anchor_idx,
                  anchor_weight=1000.0, gravity=(0.0, -9.8, 0.0),
                  wind=None, dt=0.04, admm_iters=10, cg_iters=25,
-                 dtype=jnp.float32, collect_residuals=False,
-                 multigrid=False):
+                 dtype=jnp.float32, collect_residuals=False):
         from ..models.anchor import StaticAnchor
 
-        # in-kernel per-iteration residual emission (see
-        # ops/pallas/cloth_step.py): "primal" is ~free; True additionally
-        # emits the dual via a second reverse-shift accumulation
+        #: per-iteration residual collection: "primal", or True for primal
+        #: + dual (the dual via a second reverse-shift accumulation)
         self.collect_residuals = (
             collect_residuals if collect_residuals in (True, "primal")
             else bool(collect_residuals)
         )
-        #: (n_steps, admm_iters) primal residuals of the last window
-        self.last_primal = None
-        #: (n_steps, admm_iters) dual residuals (collect_residuals=True)
-        self.last_dual = None
 
         v = np.asarray(vertices, np.float64)
         n = len(v)
@@ -333,7 +326,7 @@ class ClothStepper:
         all_offs, dia_vals, diag = out
         pos = [d for d, o in enumerate(all_offs) if o >= 0]
         if len(pos) > MAX_DIAGONALS:
-            raise ValueError("too many diagonals for the cloth kernel")
+            raise ValueError("too many diagonals for the cloth layout")
         self.dia_offs = tuple(all_offs[d] for d in pos)
         dia_vals = dia_vals[pos]
 
@@ -356,69 +349,6 @@ class ClothStepper:
         )
         self._ancz = jnp.asarray(padp(v.T), dtype)
 
-        # ---- in-kernel 2D geometric multigrid preconditioner planes
-        # (core/mg.py package in the cloth kernel's flat-lane layout;
-        # the exact-solve-MATCHED configuration — the Jacobi budget
-        # needed to match grows with grid diameter, docs/PERFORMANCE.md
-        # "Matched-residual solves")
-        self._mg_meta_static = None
-        self._mgf = self._mgi = self._a2b = None
-        if multigrid:
-            from .mg import LANES, build_grid_mg
-            from .solver import _assemble_A_hat_csr
-
-            A = _assemble_A_hat_csr(n, masses, self.dt, fp).tocsr()
-            mg = None
-            for ladder in MG_LADDERS:
-                got = build_grid_mg(A, v, self.N, min_nodes=0,
-                                    level_strides=ladder,
-                                    np2_rows=MG_MAX_NP2)
-                if got is None:
-                    continue
-                planes, meta = got
-                np2 = -(-meta["nc2"] // LANES)
-                if np2 < MG_MAX_NP2:
-                    # rebuild with the tight pack width (fewer MXU
-                    # blocks in the coarsest solve)
-                    planes, meta = build_grid_mg(
-                        A, v, self.N, min_nodes=0, level_strides=ladder,
-                        np2_rows=max(1, np2),
-                    )
-                mg = (planes, meta)
-                break
-            if mg is None:
-                raise ValueError(
-                    "in-kernel multigrid: no stride ladder fits this "
-                    "grid (not a full grid in nested numbering?)"
-                )
-            mgp, mgm = mg
-
-            def pl2d(flat):
-                return np.asarray(flat, np.float64).reshape(-1, LANES)
-
-            self._mgf = jnp.asarray(np.concatenate([
-                pl2d(mgp["l1_vals"]),
-                pl2d(mgp["om_invd0"]),
-                pl2d(mgp["om_invd1"]),
-                pl2d(mgp["t0_masks"]),
-                pl2d(mgp["t1_masks"]),
-                mgp["pack_mask"].reshape(-1, LANES),
-                mgp["unpack_mask"].reshape(-1, LANES),
-            ], 0), dtype)
-            self._mgi = jnp.asarray(np.concatenate([
-                mgp["pack_idx"].reshape(-1, LANES),
-                mgp["unpack_idx"].reshape(-1, LANES),
-            ], 0).astype(np.int32))
-            self._a2b = jnp.asarray(
-                mgp["a2inv_blocks"].reshape(-1, LANES), dtype
-            )
-            self._mg_meta_static = (
-                tuple(mgm["l1_offs"]), tuple(mgm["t0_offs"]),
-                tuple(mgm["t1_offs"]), tuple(mgm["rangesA"]),
-                tuple(mgm["rangesB"]), int(mgm["np2_rows"]),
-            )
-            self.mg_levels = mgm["levels"]
-
         self.state = {
             "x": jnp.asarray(np.pad(v.T, ((0, 0), (0, pad))), dtype),
             "v": jnp.zeros((3, self.N), dtype),
@@ -426,77 +356,6 @@ class ClothStepper:
             "ancu": jnp.zeros((3, self.N), dtype),
             "t": jnp.asarray(0.0, dtype),
         }
-        self._rollouts = {}
-
-    @property
-    def x(self):
-        return self.state["x"][:, : self.n_nodes].T
-
-    @property
-    def v(self):
-        return self.state["v"][:, : self.n_nodes].T
-
-    ROLLOUT_WINDOW = 10
-
-    def _roll_fn(self, n_steps):
-        from ..ops.pallas.cloth_step import cloth_rollout
-
-        if n_steps not in self._rollouts:
-            dt = self.dt
-            masks, ancz, dia = self._masks, self._ancz, self._dia
-            collect = self.collect_residuals
-            kw = dict(
-                groups=self.groups, wind_groups=self.wind_groups,
-                dia_offs=self.dia_offs, cg_iters=self.cg_iters, dt=dt,
-                gravity=self.gravity, wind_dir=self.wind_dir,
-                n_iters=self.admm_iters, collect_residuals=collect,
-                mgf=self._mgf, mgi=self._mgi, a2b=self._a2b,
-                mg_meta_static=self._mg_meta_static,
-            )
-
-            def roll(state):
-                out = cloth_rollout(
-                    masks, ancz, dia, state["x"], state["v"],
-                    state["u"], state["ancu"], n_steps=n_steps, **kw
-                )
-                x3, v3, u, ancu = out[:4]
-                new = {
-                    "x": x3, "v": v3, "u": u, "ancu": ancu,
-                    "t": state["t"] + n_steps * dt,
-                }
-                if collect is True:
-                    return (new, out[4], out[5])
-                return (new, out[4]) if collect else new
-
-            self._rollouts[n_steps] = jax.jit(roll, donate_argnums=(0,))
-        return self._rollouts[n_steps]
-
-    def _advance(self, n_steps):
-        out = self._roll_fn(n_steps)(self.state)
-        if self.collect_residuals is True:
-            self.state, self.last_primal, self.last_dual = out
-        elif self.collect_residuals:
-            self.state, self.last_primal = out
-        else:
-            self.state = out
-
-    def step(self):
-        self._advance(1)
-        return True
-
-    def run(self, n_steps: int):
-        """n_steps timesteps, chunked into ROLLOUT_WINDOW-step kernel calls
-        (remainder as single steps) so any n_steps reuses at most two
-        compiled kernels. With collect_residuals, last_primal holds the
-        final window's residuals."""
-        W = self.ROLLOUT_WINDOW
-        full, rem = divmod(n_steps, W)
-        for _ in range(full):
-            self._advance(W)
-        for _ in range(rem):
-            self._advance(1)
-        return True
-
 
 def cloth_from_system(system):
     """Build a ClothStepper equivalent to a buildable System when its
@@ -506,8 +365,8 @@ def cloth_from_system(system):
     into constant-offset stencils with uniform constants, at most one Bend
     (same condition on hinges), StaticAnchors with one shared weight,
     all-node ExplicitForce kicks, at most one WindForce over groupable
-    triangles, no residual collection, and a dia-structured A_hat. A
-    scrambled grid numbering is recovered via detect_grid_numbering."""
+    triangles, and a dia-structured A_hat. A scrambled grid numbering is
+    recovered via detect_grid_numbering."""
     from ..models.anchor import StaticAnchor
     from ..models.bend import Bend
     from ..models.explicit import ExplicitForce, WindForce
@@ -515,14 +374,14 @@ def cloth_from_system(system):
     from .lattice import detect_grid_numbering
 
     s = system.settings
-    # collect_residuals="primal" is emitted in-kernel ~free; True adds
-    # the dual via a second in-kernel accumulation. Residual-driven
-    # early exit needs the general path.
+    # residual-driven early exit, over-relaxation, Anderson, the AMG
+    # preconditioner and per-iteration CG schedules need the general path
     if s.collect_residuals not in (False, None, True, "primal") or (
             s.residual_tol is not None):
         return None
-    # the kernel runs the plain α=1 reference iteration only
-    if s.relaxation != 1.0 or s.acceleration is not None:
+    if (s.relaxation != 1.0 or s.acceleration is not None
+            or s.preconditioner != "jacobi"
+            or isinstance(s.cg_fixed_iters, (tuple, list))):
         return None
 
     tri = None
@@ -590,20 +449,17 @@ def cloth_from_system(system):
                   if bend is not None else None)
         wind_arg = ((np.asarray(wind.direction, np.float64),
                      remap(wind.tris)) if wind is not None else None)
-        mg = s.preconditioner == "amg"
         try:
             stepper = ClothStepper(
                 vv, mm, tri_r, bend_r, remap(anchor_idx),
                 anchor_weight=anchor_weight, gravity=tuple(gravity),
                 wind=wind_arg, dt=s.timestep_s, admm_iters=s.admm_iters,
                 cg_iters=(s.cg_fixed_iters
-                          if s.cg_fixed_iters is not None
-                          else (10 if mg else 25)),
+                          if s.cg_fixed_iters is not None else 25),
                 dtype=s.dtype,
                 collect_residuals=(s.collect_residuals
                                    if s.collect_residuals in
                                    (True, "primal") else False),
-                multigrid=mg,
             )
         except ValueError:
             return None

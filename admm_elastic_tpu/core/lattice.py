@@ -1,390 +1,14 @@
-"""Lattice fast path: whole-timestep single-kernel ADMM for beam lattices.
+"""Grid detection for vertex renumbering.
 
-LatticeStepper runs the same algorithm as a System configured with
-{HyperElasticTet(model='nh', backend='pallas'), StaticAnchor, gravity,
-global_solver='dia'} on a `make_beam_tets` mesh — but executes the ENTIRE
-timestep (10 ADMM iterations: local prox steps, dual updates, RHS, CG
-solves) as ONE Pallas kernel (ops/pallas/lattice_step.py), exploiting the
-lattice's constant-offset selector structure to replace every gather and
-scatter with static lane shifts.
-
-Use when the mesh is a uniform-cell lattice and the force set fits the
-restrictions; fall back to the general System otherwise. Trajectories match
-the general dia path to f32 round-off (tests/test_lattice.py).
+A mesh whose vertices sit on a full regular grid, in any numbering, can be
+renumbered into canonical grid order; A_hat's sparsity then collapses onto
+a handful of constant diagonals (the dia global solve and the whole-mesh
+layouts).
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-import jax
-import jax.numpy as jnp
-
-from ..geometry.primitives import make_beam_tets
-from ..models.anchor import StaticAnchor
-from ..models.tet import HyperElasticTet
-from .solver import assemble_A_hat_dia
-
-
-class LatticeStepper:
-    """Single-kernel ADMM stepper for an (nx,ny,nz)-cell uniform beam.
-
-    Matches System semantics for: one tet force — NeoHookean/StVK
-    HyperElasticTet (uniform mu/lam, `newton_iters` local iterations,
-    warm-started) or LinearTetStrain (model='arap', uniform stiffness
-    passed as mu) — StaticAnchor on `anchor_idx` (uniform `anchor_weight`),
-    an optional CollisionForce floor (`floor_y`, weight 32,
-    CollisionForce.cpp:27-34), a gravity velocity kick, and the dia global
-    solve with `cg_iters` fixed Jacobi-PCG iterations.
-    """
-
-    def __init__(self, nx, ny, nz, size, masses, mu, lam, anchor_idx,
-                 gravity=(0.0, -9.8, 0.0), dt=0.04, admm_iters=10,
-                 newton_iters=5, cg_iters=25, anchor_weight=1000.0,
-                 dtype=jnp.float32, model="nh", floor_y=None,
-                 floor_weight=32.0, origin=(0.0, 0.0, 0.0)):
-        from ..models.collision import Collision, Floor
-        from ..models.tet import LinearTetStrain
-        from ..ops.pallas.lattice_step import corner_offsets, group_tables
-
-        if model not in ("nh", "stvk", "arap"):
-            raise ValueError(f"unknown lattice model {model!r}")
-        self.mesh = make_beam_tets(nx, ny, nz, size)
-        origin = np.asarray(origin, np.float64)
-        self.mesh.vertices = self.mesh.vertices + origin
-        gx, gy, gz = nx + 1, ny + 1, nz + 1
-        n = gx * gy * gz
-        assert self.mesh.n_vertices == n
-        self.n_nodes = n
-        self.dt = float(dt)
-        self.admm_iters = int(admm_iters)
-        self.cg_iters = int(cg_iters)
-        self.newton_iters = int(newton_iters)
-        self.dtype = dtype
-        self.model = model
-        self.floor_y = None if floor_y is None else float(floor_y)
-        self.floor_w2 = float(floor_weight) ** 2
-        self.gravity = jnp.asarray(gravity, dtype)
-        masses = np.broadcast_to(np.asarray(masses, np.float64), (n,)).copy()
-
-        # prox constant k: min(mu,lam) for hyperelastic (TetForce.cpp:306),
-        # the stiffness itself for ARAP (TetForce.cpp:116 — pass it as mu)
-        kprox = float(min(mu, lam)) if model != "arap" else float(mu)
-        self._mu, self._lam, self._kprox = float(mu), float(lam), kprox
-
-        # group tables (per-group selector coefficients + w2 = k*vol)
-        self.offs = tuple(corner_offsets(gy, gz))
-        raw = group_tables(size)
-        self.groups = tuple(
-            (corners, parity, tuple(np.asarray(cp).ravel().tolist()),
-             kprox * vol)
-            for (corners, parity, cp, vol) in raw
-        )
-        self.n_groups = len(self.groups)
-
-        # exact same global matrix as the general path
-        if model == "arap":
-            tet = LinearTetStrain(self.mesh.tets, mu)
-        else:
-            tet = HyperElasticTet(self.mesh.tets, mu, lam,
-                                  max_iters=newton_iters, model=model)
-        p_tet, _ = tet.build(self.mesh.vertices, masses, self.dt)
-        anc = StaticAnchor(anchor_idx, weight=anchor_weight)
-        p_anc, _ = anc.build(self.mesh.vertices, masses, self.dt)
-        fp = {"tet": p_tet, "anchor": p_anc}
-        if self.floor_y is not None:
-            col = Collision([Floor(center=(0.0, self.floor_y, 0.0))],
-                            n_nodes=n, weight=float(floor_weight))
-            p_col, _ = col.build(self.mesh.vertices, masses, self.dt)
-            fp["collision"] = p_col
-        out = assemble_A_hat_dia(n, masses, self.dt, fp)
-        if out is None:
-            raise ValueError("mesh is not dia-structured (not a lattice?)")
-        self.dia_offs, dia_vals, diag = out
-
-        self.N = -(-n // 128) * 128
-        pad = self.N - n
-
-        def padp(a, fill=0.0):
-            return np.pad(np.asarray(a, np.float64), ((0, 0), (0, pad)),
-                          constant_values=fill)
-
-        self._dia = jnp.asarray(padp(dia_vals), dtype)
-        self._invd = jnp.asarray(
-            padp(1.0 / diag[None, :], fill=1.0), dtype
-        )
-
-        # masks: [anchor w2 plane, even-parity cell validity, odd-parity
-        # cell validity, valid-vertex (non-pad) plane]
-        aw2 = np.zeros(n)
-        aidx = np.asarray(anchor_idx, np.int64)
-        aw2[aidx] = np.broadcast_to(
-            np.asarray(anchor_weight, np.float64) ** 2, aidx.shape
-        )
-        I, J, K = np.meshgrid(
-            np.arange(gx), np.arange(gy), np.arange(gz), indexing="ij"
-        )
-        valid = (I < nx) & (J < ny) & (K < nz)
-        even = (valid & (((I + J + K) % 2) == 0)).ravel().astype(np.float64)
-        odd = (valid & (((I + J + K) % 2) == 1)).ravel().astype(np.float64)
-        vvalid = np.ones(n)
-        self._masks = jnp.asarray(
-            padp(np.stack([aw2, even, odd, vvalid])), dtype
-        )
-        self._ancz = jnp.asarray(
-            padp(self.mesh.vertices.T), dtype
-        )
-        self._mpad = jnp.asarray(
-            np.pad(masses, (0, pad))[None, :], dtype
-        )
-
-        self.state = {
-            # x/v live in padded plane layout (3,N) — the kernel does the
-            # whole step (incl. velocity kick + update) in that layout, so
-            # rollouts run with zero per-step relayout work
-            "x": jnp.asarray(
-                np.pad(self.mesh.vertices.T, ((0, 0), (0, pad))), dtype
-            ),
-            "v": jnp.zeros((3, self.N), dtype),
-            # second-minor dim padded to the (8,128) HBM tile so the
-            # per-group DMA slices are tiling-aligned (planes 0-8 / 0-2 used)
-            "u": jnp.zeros((self.n_groups, 16, self.N), dtype),
-            "warm": jnp.ones((self.n_groups, 8, self.N), dtype),
-            "ancu": jnp.zeros((3, self.N), dtype),
-            "colu": jnp.zeros((3, self.N), dtype),
-            "t": jnp.asarray(0.0, dtype),
-        }
-        self._rollouts = {}
-
-    @property
-    def x(self):
-        """(n,3) positions (converted from the internal plane layout)."""
-        return self.state["x"][:, : self.n_nodes].T
-
-    @property
-    def v(self):
-        return self.state["v"][:, : self.n_nodes].T
-
-    def _kernel_kwargs(self):
-        dt = self.dt
-        return dict(
-            offs=self.offs, groups=self.groups, dia_offs=self.dia_offs,
-            mu=self._mu, lam=self._lam, kprox=self._kprox,
-            newton_iters=self.newton_iters, cg_iters=self.cg_iters,
-            dt=dt, gravity=tuple(float(q) for q in np.asarray(self.gravity)),
-            n_iters=self.admm_iters, model=self.model,
-            floor_y=self.floor_y, floor_w2=self.floor_w2,
-        )
-
-    ROLLOUT_WINDOW = 10
-
-    def _roll_fn(self, n_steps):
-        from ..ops.pallas.lattice_step import lattice_rollout
-
-        if n_steps not in self._rollouts:
-            dt = self.dt
-            masks, ancz, dia, invd, mpad = (
-                self._masks, self._ancz, self._dia, self._invd, self._mpad
-            )
-            kw = self._kernel_kwargs()
-
-            def roll(state):
-                x3, v3, u, warm, ancu, colu = lattice_rollout(
-                    masks, ancz, dia, invd, mpad, state["x"], state["v"],
-                    state["u"], state["warm"], state["ancu"], state["colu"],
-                    n_steps=n_steps, **kw
-                )
-                return {
-                    "x": x3, "v": v3, "u": u, "warm": warm, "ancu": ancu,
-                    "colu": colu, "t": state["t"] + n_steps * dt,
-                }
-
-            self._rollouts[n_steps] = jax.jit(roll, donate_argnums=(0,))
-        return self._rollouts[n_steps]
-
-    def step(self):
-        """One timestep (the 1-step rollout kernel)."""
-        self.state = self._roll_fn(1)(self.state)
-        return True
-
-    def run(self, n_steps: int):
-        """n_steps timesteps via whole-rollout kernel calls, chunked into
-        fixed ROLLOUT_WINDOW-step windows (remainder as single steps) so
-        any n_steps reuses at most two compiled kernels (remote compiles
-        are expensive)."""
-        W = self.ROLLOUT_WINDOW
-        full, rem = divmod(n_steps, W)
-        for _ in range(full):
-            self.state = self._roll_fn(W)(self.state)
-        for _ in range(rem):
-            self.state = self._roll_fn(1)(self.state)
-        return True
-
-
-def detect_lattice(vertices, tets, rel_tol=1e-6):
-    """Detect whether (vertices, tets) is a uniform-cube beam lattice with
-    the make_beam_tets 5-tet decomposition, in ANY vertex numbering.
-
-    Returns (nx, ny, nz, size, origin, to_canonical) where
-    to_canonical[orig_id] = canonical lattice id ((i*gy + j)*gz + k), or
-    None if the mesh does not qualify. The intra-tet vertex order may
-    differ from canonical — isotropic constraint energies on singular
-    values are invariant under tet relabeling, so trajectories match.
-    """
-    v = np.asarray(vertices, np.float64)
-    n = len(v)
-    if n < 8:
-        return None
-    mins = v.min(axis=0)
-    span = v.max(axis=0) - mins
-    scale = max(span.max(), 1.0)
-    tol = rel_tol * scale
-
-    axes = []
-    for a in range(3):
-        s = np.sort(np.unique(np.round(v[:, a] / tol).astype(np.int64)))
-        vals = s * tol
-        # merge near-duplicates
-        keep = [vals[0]]
-        for q in vals[1:]:
-            if q - keep[-1] > tol * 4:
-                keep.append(q)
-        axes.append(np.asarray(keep))
-    g = [len(a) for a in axes]
-    if g[0] * g[1] * g[2] != n or min(g) < 2:
-        return None
-    spacings = []
-    for a in range(3):
-        d = np.diff(axes[a])
-        if d.size == 0 or np.abs(d - d[0]).max() > tol * 8:
-            return None
-        spacings.append(d[0])
-    size = spacings[0]
-    if max(abs(s - size) for s in spacings) > tol * 8:
-        return None  # group tables assume uniform cube cells
-
-    ijk = np.round((v - mins) / size).astype(np.int64)
-    if np.abs(v - (mins + ijk * size)).max() > tol * 8:
-        return None
-    if (ijk < 0).any() or (ijk >= np.asarray(g)).any():
-        return None
-    gx, gy, gz = g
-    cid = (ijk[:, 0] * gy + ijk[:, 1]) * gz + ijk[:, 2]
-    if len(np.unique(cid)) != n:
-        return None
-
-    nx, ny, nz = gx - 1, gy - 1, gz - 1
-    canon = make_beam_tets(nx, ny, nz, size)
-    t = np.asarray(tets, np.int64)
-    if t.shape != canon.tets.shape:
-        return None
-    remapped = np.sort(cid[t], axis=1)
-    expected = np.sort(np.asarray(canon.tets, np.int64), axis=1)
-    rm = remapped[np.lexsort(remapped.T[::-1])]
-    ex = expected[np.lexsort(expected.T[::-1])]
-    if not np.array_equal(rm, ex):
-        return None
-    return nx, ny, nz, float(size), mins, cid
-
-
-def lattice_from_system(system):
-    """Build a LatticeStepper equivalent to an initialized-or-buildable
-    System when its mesh/forces qualify (VERDICT r1 item 4: the lattice
-    fast path reachable through the plain System API). Returns
-    (stepper, to_canonical) or None.
-
-    Qualifying configuration: one tet force (HyperElasticTet nh/stvk with
-    uniform material, or LinearTetStrain with uniform stiffness), any
-    StaticAnchors, at most one Collision holding exactly one Floor,
-    all-node ExplicitForce kicks only, no residual collection, and a
-    uniform-cube lattice mesh in any vertex numbering."""
-    from ..models.collision import Collision, Floor
-    from ..models.explicit import ExplicitForce, WindForce
-    from ..models.tet import LinearTetStrain
-
-    s = system.settings
-    if s.collect_residuals or s.residual_tol is not None:
-        return None
-    # the kernel runs the plain α=1 reference iteration only
-    if s.relaxation != 1.0 or s.acceleration is not None:
-        return None
-
-    tet = None
-    anchors = []
-    floor = None
-    for f in system.forces:
-        if isinstance(f, HyperElasticTet):
-            if tet is not None or f.model not in ("nh", "stvk"):
-                return None
-            mu = np.unique(f.mu)
-            lam = np.unique(f.lam)
-            if len(mu) != 1 or len(lam) != 1:
-                return None
-            tet = ("hyper", f, float(mu[0]), float(lam[0]))
-        elif isinstance(f, LinearTetStrain):
-            if tet is not None:
-                return None
-            k = np.unique(f.stiffness)
-            if len(k) != 1:
-                return None
-            tet = ("arap", f, float(k[0]), float(k[0]))
-        elif isinstance(f, StaticAnchor):
-            anchors.append(f)
-        elif isinstance(f, Collision):
-            shapes = f.shapes
-            if (floor is not None or len(shapes) != 1
-                    or not isinstance(shapes[0], Floor)
-                    or f.n_nodes != system.n_nodes):
-                return None
-            floor = f
-        else:
-            return None
-    if tet is None or not anchors:
-        return None
-    aw = np.unique(np.concatenate([np.asarray(a.weight).ravel()
-                                   for a in anchors]))
-    if len(aw) != 1:
-        return None
-    anchor_weight = float(aw[0])
-
-    gravity = np.zeros(3)
-    for e in system.explicit_forces:
-        if isinstance(e, WindForce) or not isinstance(e, ExplicitForce):
-            return None
-        if getattr(e, "indices", None) is not None:
-            return None
-        gravity = gravity + np.asarray(e.direction, np.float64)
-
-    kind, tf, p0, p1 = tet
-    det = detect_lattice(system._x, tf.tets)
-    if det is None:
-        return None
-    nx, ny, nz, size, origin, cid = det
-
-    n = system.n_nodes
-    masses_c = np.empty(n)
-    masses_c[cid] = system._m
-    anchor_cids = np.concatenate(
-        [cid[np.asarray(a.indices, np.int64).ravel()] for a in anchors]
-    )
-    if kind == "arap":
-        model, mu, lam, newton_iters = "arap", p0, p0, 1
-    else:
-        model, mu, lam = tf.model, p0, p1
-        newton_iters = tf.max_iters
-
-    stepper = LatticeStepper(
-        nx, ny, nz, size, masses_c, mu, lam, anchor_cids,
-        gravity=tuple(gravity), dt=s.timestep_s, admm_iters=s.admm_iters,
-        newton_iters=newton_iters,
-        cg_iters=s.cg_fixed_iters if s.cg_fixed_iters is not None else 25,
-        anchor_weight=anchor_weight, dtype=s.dtype, model=model,
-        floor_y=(float(floor.shapes[0].center[1])
-                 if floor is not None else None),
-        floor_weight=(floor.weight_value if floor is not None else 32.0),
-        origin=tuple(origin),
-    )
-    return stepper, cid
 
 
 def detect_grid_numbering(vertices, rel_tol=1e-6):
@@ -394,8 +18,8 @@ def detect_grid_numbering(vertices, rel_tol=1e-6):
 
     Used by System's 'auto' reorder: a grid-positioned mesh in scrambled
     numbering re-numbered this way makes A_hat's sparsity a handful of
-    constant diagonals again, re-qualifying it for the single-kernel dia
-    CG (VERDICT r1 item 3: vertex reordering for the unstructured path).
+    constant diagonals again, re-qualifying it for the dia matvec (and
+    the grid-cloth layout, core/cloth.py).
     """
     v = np.asarray(vertices, np.float64)
     n = len(v)

@@ -1,12 +1,11 @@
-"""Host-side builder for the IN-KERNEL geometric multigrid preconditioner
-(banded whole-timestep kernel, dia mode, grid meshes).
+"""Host-side builder for the geometric multigrid preconditioner of the
+sharded whole-mesh steppers (solver='mg': dia mode, grid meshes).
 
 The reference's global step is an exact prefactored LDLT
-(/root/reference/deps/admm-elastic-sca/src/system/System.cpp:140). The
-banded kernel's fixed-budget Jacobi-PCG needs ~100 in-kernel iterations to
-match that exact solve at 100k-tet scale (docs/PERFORMANCE.md
-"Matched-residual solves"). This module builds a two-coarse-level geometric
-multigrid whose EVERY device operation is one the kernel already performs:
+(System.cpp:140). A fixed-budget Jacobi-PCG needs ~100 iterations to
+match that exact solve at 100k-tet scale (f64 CPU budget study, PERF.md).
+This module builds a two-coarse-level geometric multigrid whose EVERY
+device operation is one the banded layout already performs:
 
   level matvec   — masked sparse-diagonal planes (static flat-index shifts)
   restriction    — R = sum_c M_c . shift(+c) over the 8 block corners
@@ -14,7 +13,7 @@ multigrid whose EVERY device operation is one the kernel already performs:
   prolongation   — P = R^T = sum_c shift(M_c . , -c)  (same masks: SPD)
   coarsest solve — L2 dofs packed to a (4,128) plane by per-q lane gathers
                    (static row slices; ~tiny ops), then an exact dense
-                   inverse applied as 16 (1,128)@(128,128) MXU matmuls
+                   inverse applied as 16 (1,128)@(128,128) matmuls
 
 Coarse operators are Galerkin (P^T A P over 2x2x2 vertex blocks): for a
 grid NUMBERING the coarse stencil offsets are 2x / 4x the fine strides, so
@@ -317,7 +316,7 @@ def build_grid_mg(A, vertices, n_pad, min_nodes=4096, level_strides=(2, 4),
     npad2 = np2_rows * LANES
     a2inv_pad = np.zeros((npad2, npad2))
     a2inv_pad[:nc2, :nc2] = a2inv
-    # np2^2 (128,128) MXU blocks: z[tr] = sum_sr r[sr] @ B[sr*np2+tr]
+    # np2^2 (128,128) blocks: z[tr] = sum_sr r[sr] @ B[sr*np2+tr]
     # with B[sr*np2+tr][sl, tl] = a2inv[tr*128+tl, sr*128+sl]
     blocks = np.zeros((np2_rows * np2_rows, LANES, LANES))
     for sr in range(np2_rows):

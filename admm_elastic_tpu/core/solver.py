@@ -2,8 +2,8 @@
 
 The reference pre-factors the SPD system  A = M + dt^2 D^T W^2 D  with a
 sequential sparse SimplicialLDLT and backsolves every ADMM iteration
-(System.cpp:136-140,62). Two structural facts make the TPU replacement both
-faster and more flexible:
+(System.cpp:136-140,62). Two structural facts make the iterative
+replacement both faster and more flexible:
 
   1. D never mixes xyz components (see ops/segment.py), so A = A_hat (x) I_3
      with A_hat only (n,n): the solve is A_hat X = B with X, B (n,3).
@@ -12,7 +12,7 @@ faster and more flexible:
 
 Two modes:
   * 'dense'  — precompute A_hat^{-1} once on the host; every global step is a
-    single (n,n)@(n,3) matmul on the MXU. Exact (matches LDLT to roundoff),
+    single (n,n)@(n,3) matmul. Exact (matches LDLT to roundoff),
     ideal for n up to a few thousand. Weight changes re-invert on the host
     (the reference pays the same re-factorization, System.cpp:159-179).
   * 'cg'     — matrix-free Jacobi-preconditioned CG; A-apply is
@@ -131,10 +131,9 @@ def pcg_solve(A_apply, b, x0, diag, tol, max_iters):
 def assemble_A_hat_ell(n, masses, dt, force_params, pad_to: int = 8):
     """Host-side assembly of A_hat in padded ELL (ELLPACK) form.
 
-    TPU scatters serialize; gathers vectorize. Precomputing the sparse
-    A_hat = diag(m) + dt^2 sum C^T W^2 C as per-row neighbor lists turns
-    every CG matvec into ONE gather + weighted sum — no segment_sum in the
-    inner loop. Rows are padded to the max vertex degree (rounded up to a
+    Precomputing the sparse A_hat = diag(m) + dt^2 sum C^T W^2 C as
+    per-row neighbor lists turns every CG matvec into ONE gather + weighted
+    sum — no segment_sum in the inner loop. Rows are padded to the max vertex degree (rounded up to a
     multiple of `pad_to`) with zero-value self-references.
 
     Returns (idx (n,K) int32, vals (n,K) float64, diag (n,) float64).
@@ -158,8 +157,8 @@ def assemble_A_hat_dia(n, masses, dt, force_params, max_diagonals: int = 48):
     Meshes with regular (lattice) vertex numbering produce an A_hat whose
     nonzeros lie on a handful of fixed diagonals (27 for a hexahedral
     lattice). Storing those diagonals turns the matvec into static
-    shift-multiply-adds — NO gather — which lets the whole CG solve run
-    inside one VMEM-resident Pallas kernel (ops/pallas/cg_dia.py).
+    shift-multiply-adds — NO gather — which XLA fuses into one kernel per
+    matvec (dia_apply).
 
     Returns (offsets tuple, dia_vals (D, n) float64, diag (n,)) or None if
     the matrix has more than max_diagonals distinct diagonals (unstructured
@@ -176,8 +175,7 @@ def assemble_A_hat_dia(n, masses, dt, force_params, max_diagonals: int = 48):
 
 
 def dia_apply(x, offsets, dia_vals):
-    """A_hat @ x via diagonals: (n,3) -> (n,3). Static shifts, no gather.
-    (XLA reference implementation; the hot path is the fused kernel.)"""
+    """A_hat @ x via diagonals: (n,3) -> (n,3). Static shifts, no gather."""
     n = x.shape[0]
     out = jnp.zeros_like(x)
     for d, off in enumerate(offsets):
@@ -196,8 +194,8 @@ def ell_apply(x, ell_idx, ell_vals):
 
 def assemble_transpose_incidence(n, force_params, order, pad_to: int = 8):
     """Vertex -> (element, slot) incidence in padded-ELL form, for computing
-    D^T W^2 y by GATHER instead of segment_sum (the right-hand-side assembly;
-    TPU scatters serialize, gathers vectorize).
+    D^T W^2 y by GATHER instead of segment_sum (the right-hand-side
+    assembly: a deterministic per-vertex sum with no scatter-add).
 
     Contributions are laid out as the concatenation, in `order`, of each
     type's flattened (E*K, 3) per-vertex contribution rows; a zero sentinel
@@ -237,8 +235,7 @@ def transpose_gather_apply(contribs_flat, inc_idx):
 def pcg_solve_fixed(A_apply, b, x0, diag, n_iters: int):
     """Jacobi-PCG with a FIXED iteration count (lax.fori_loop, no residual
     test): no data-dependent control flow, so the whole solve is a static
-    pipeline — faster on TPU and required where dynamic while_loops are
-    unavailable. ADMM tolerates the resulting inexact global solves (it is
+    pipeline with no per-iteration host-visible condition. ADMM tolerates the resulting inexact global solves (it is
     itself an outer fixed-point loop); pair with warm starts."""
     inv_diag = 1.0 / diag
 

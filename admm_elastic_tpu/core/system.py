@@ -32,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..models.base import ForceBatch
-from ..ops.segment import coeff_apply, coeff_apply_T
+from ..utils.precision import highest
 from .solver import (
     A_hat_apply,
     A_hat_diag,
@@ -55,37 +55,28 @@ class Settings:
     timestep_s: float = 0.04
     admm_iters: int = 10
     verbose: int = 1
-    #: float32 is the TPU-native default; use float64 (with jax_enable_x64)
-    #: for trajectory parity against the all-double reference
+    #: float32 by default; use float64 (with jax_enable_x64) for
+    #: trajectory parity against the all-double reference
     dtype: Any = jnp.float32
-    #: 'auto' picks 'dense' for small meshes, 'cg' for large
+    #: 'auto' picks 'dense' for small meshes, 'dia' (else 'ell') for large
     global_solver: str = "auto"
     dense_max_nodes: int = 4096
     cg_tol: float = 1e-10
     cg_max_iters: int = 250
     #: when set, CG runs exactly this many iterations with no residual test
-    #: (static control flow; fastest on TPU with warm starts). A tuple
+    #: (static control flow; pairs with warm starts). A tuple
     #: (first, rest) gives ADMM iteration 0 — whose warm start is stale by
     #: the whole explicit kick x̄ = x + dt·v — a deeper solve than the
     #: remaining iterations, whose warm starts drift only by the local
     #: step's z−u updates; matched-residual evidence on unstructured
     #: meshes needs the uneven schedule (tools/residual_match.py)
     cg_fixed_iters: int | tuple | None = None
-    #: default backend for constraint batches built by the scene layer:
-    #: 'xla' or 'pallas' (fused kernels; tet types)
-    local_backend: str = "xla"
-    #: CG execution backend for ell mode (+ cg_fixed_iters):
-    #:  'xla'    — one dispatched op per vector update
-    #:  'fused'  — CG vector updates as one Pallas kernel per iteration
-    #:  'kernel' — the ENTIRE solve as one VMEM-resident Pallas kernel with
-    #:             in-kernel lane-gather matvec (ops/pallas/cg_ell.py)
-    cg_backend: str = "xla"
     #: dense mode: iterative-refinement steps per global solve
     #: (x += A^{-1}(b - A x) via the sparse ELL matvec) — recovers accuracy
     #: lost to the f32 stored inverse at ~5 ms/step cost
     dense_refine_steps: int = 0
     #: global-step PCG preconditioner: 'jacobi' (diagonal) or 'amg'
-    #: (aggregation-AMG V-cycle, core/amg.py; ell mode + xla backend).
+    #: (aggregation-AMG V-cycle, core/amg.py; any sparse global mode).
     #: A_hat is stiffness-dominated, so Jacobi-PCG needs O(mesh diameter)
     #: iterations for a matched-residual solve on large unstructured
     #: meshes; the V-cycle removes the diameter dependence — use it when
@@ -93,32 +84,34 @@ class Settings:
     preconditioner: str = "jacobi"
     #: compute per-iteration residuals (Eq. 22-23 noted at
     #: System.cpp:64-65 but never computed by the reference): True =
-    #: primal + dual (general path), "primal" = primal only — emitted
-    #: in-kernel at ~zero cost when a whole-timestep fast path engages
+    #: primal + dual, "primal" = primal only
     collect_residuals: bool | str = False
     #: when set, stop ADMM iterations early once the primal residual
     #: ||W(Dx-z)|| drops below this absolute tolerance (max admm_iters still
     #: bounds the loop). The reference never implemented its noted early exit.
     residual_tol: float | None = None
-    #: opt-in: route the whole timestep through the single-kernel lattice
-    #: fast path (core/lattice.LatticeStepper) when the mesh is a uniform
-    #: beam lattice (any vertex numbering) and the force set qualifies
-    #: (one nh/stvk/arap tet force, StaticAnchors, optional floor
-    #: Collision, gravity kicks). Falls back to the general path silently
-    #: when the scene does not qualify.
+    #: opt-in: step the whole timestep through a whole-mesh layout — the
+    #: banded tet layout (parallel/banded_spmd.ShardedBandedStepper) or
+    #: the grid-cloth layout (parallel/cloth_spmd.ShardedClothStepper) on
+    #: a one-device mesh — when the force set qualifies (one nh/stvk/arap
+    #: tet force with StaticAnchors, analytic Collisions and gravity; or
+    #: grid cloth with strain, bend, anchors, gravity and wind). Falls
+    #: back to the general path when the scene, the preconditioner
+    #: ('amg') or the residual collection (dual residuals on tets) is
+    #: not covered.
     lattice_fast_path: bool = False
     #: 'auto': when the dia solver rejects the vertex NUMBERING but the
     #: vertex POSITIONS form a regular grid, renumber internally (canonical
-    #: grid order) so the single-kernel dia CG re-qualifies; the public
-    #: x/v API stays in the caller's numbering. 'none' disables.
+    #: grid order) so the dia matvec re-qualifies; the public x/v API
+    #: stays in the caller's numbering. 'none' disables.
     reorder: str = "auto"
     #: ADMM over-relaxation factor α (Boyd et al. 2011 §3.4.3): the local
     #: prox input and dual update see α·Dx + (1−α)·z_prev instead of Dx.
     #: 1.0 reproduces the reference exactly (System.cpp:54-58 has no
     #: relaxation). Values in [1.5, 1.9] typically cut iterations-to-
     #: residual (measure per scene: tools/accel_study.py). General path
-    #: only — α≠1 disables the fused local+RHS kernels and the
-    #: whole-timestep fast paths for the step.
+    #: only — α≠1 disables the fused local+RHS kernel and the
+    #: whole-mesh layouts for the step.
     relaxation: float = 1.0
     #: fixed-point acceleration of the ADMM iteration map on (x, u):
     #: None (reference behavior) or "anderson" — safeguarded Anderson(m)
@@ -173,7 +166,7 @@ def _anderson_loop(iteration, carry, iters, m):
     unaccelerated loop); the accepted iterate is the AA extrapolation
     q_{k+1} = G(q_k) - ΔG γ with γ = argmin ||f_k - ΔF γ|| over the last
     `m` residual differences, solved via regularized normal equations
-    (static shapes — TPU-friendly). Safeguard: when the fixed-point
+    (static shapes). Safeguard: when the fixed-point
     residual ||G(q)-q|| grows, the history is restarted and the plain
     update is taken instead (residual-growth restart). The final
     iteration always takes the plain update so the returned state is a
@@ -346,10 +339,10 @@ class System:
         self._i2o = None
         mode = s.global_solver
         if mode == "auto":
-            # dense-inverse MXU matmul for small meshes; for large meshes the
-            # sparse-DIAgonal single-kernel CG when the numbering permits,
-            # else padded-ELL gather CG. Pick 'cg' explicitly for
-            # element-sharded multi-chip runs or frequent weight edits.
+            # dense-inverse matmul for small meshes; for large meshes the
+            # sparse-DIAgonal CG when the numbering permits, else padded-ELL
+            # gather CG. Pick 'cg' explicitly for element-sharded
+            # multi-device runs or frequent weight edits.
             mode = "dense" if n <= s.dense_max_nodes else "dia"
         self._solver_mode = mode
         self._constraint_names = [f.name for f in self._force_list]
@@ -394,20 +387,7 @@ class System:
                                 "Solver: grid renumbering engaged — dia "
                                 "restored for scrambled input"
                             )
-                if dia is not None:
-                    # the single-kernel CG keeps (D + ~13) vertex planes
-                    # VMEM-resident; fall back to ell+fused CG when the
-                    # mesh is too large for the ~16 MB budget
-                    n_pad = -(-n // 128) * 128
-                    vmem = (len(dia[0]) + 14) * n_pad * 4
-                    if vmem > 11 * 2**20:
-                        if s.verbose:
-                            print(
-                                f"Solver: dia kernel needs ~{vmem/2**20:.0f}"
-                                " MB VMEM, dia -> ell"
-                            )
-                        dia = None
-                elif s.verbose:
+                if dia is None and s.verbose:
                     print("Solver: unstructured numbering, dia -> ell")
                 if dia is None:
                     mode = self._solver_mode = "ell"
@@ -437,24 +417,14 @@ class System:
 
         self._amg_meta = None
         if s.preconditioner == "amg":
-            # three homes: the banded whole-timestep kernel's IN-KERNEL
-            # geometric multigrid (dia mode + lattice_fast_path, grid
-            # meshes — core/mg.py), its IN-KERNEL algebraic multigrid
-            # (ell mode + lattice_fast_path, ARBITRARY topology via the
-            # uell planes — core/uamg.py), or the general path (ell +
-            # xla PCG, the f64 validation/oracle configuration and the
-            # fallback when no kernel qualifies)
-            in_kernel = s.lattice_fast_path and mode in ("dia", "ell")
-            if not in_kernel and (mode != "ell" or s.cg_backend != "xla"):
+            if mode == "dense":
                 raise ValueError(
-                    "preconditioner='amg' needs global_solver='ell' with "
-                    "cg_backend='xla' (general path), or "
-                    "lattice_fast_path=True with global_solver='dia' "
-                    "(in-kernel geometric MG on grid meshes) or 'ell' "
-                    "(in-kernel algebraic MG, any topology)"
+                    "preconditioner='amg' needs a sparse global_solver "
+                    "('cg', 'ell' or 'dia')"
                 )
-            if not in_kernel:
-                params["_solver"]["amg"] = self._build_general_amg(cparams)
+            cparams = {k: params[k] for k in self._constraint_names}
+            params["_solver"] = dict(params.get("_solver", {}))
+            params["_solver"]["amg"] = self._build_general_amg(cparams)
 
         self.params = _cast_tree(params, dtype)
         self.state = {
@@ -465,38 +435,21 @@ class System:
             "forces": _cast_tree(state_forces, dtype),
         }
         self._masses_dev = jnp.asarray(self._mi, dtype)
-        # _step_fn is built AFTER the fast-path routing / AMG-fallback
-        # decisions below (it closes over the amg hierarchy's presence)
 
         self._lattice = None
-        # the whole-timestep kernels implement the plain α=1 reference
-        # iteration only — over-relaxation / Anderson must route through
-        # the general path or they would silently run unmodified dynamics
-        nonref_iteration = (s.relaxation != 1.0
-                            or s.acceleration is not None)
-        if s.lattice_fast_path and nonref_iteration and s.verbose >= 1:
-            print("Solver: relaxation/acceleration active — whole-timestep "
-                  "fast paths disabled (general path honors them)")
-        # when the GENERAL-path AMG engaged, the (Jacobi-budget) lattice/
-        # cloth/uell steppers would silently undo the matched-residual
-        # guarantee — only the dia banded route (in-kernel MG) qualifies
-        if (s.lattice_fast_path and self._amg_meta is None
-                and not nonref_iteration):
-            self._route_fast_path(mode)
-        if (s.preconditioner == "amg" and self._amg_meta is None
-                and self._lattice is None):
-            # in-kernel candidate that did not qualify (ell mode): fall
-            # back to the GENERAL-path AMG so the mode never runs
-            # silently unmatched on a Jacobi budget
-            if s.cg_backend != "xla":
-                raise ValueError(
-                    "preconditioner='amg' fallback needs cg_backend='xla'"
-                )
-            self.params["_solver"]["amg"] = _cast_tree(
-                self._build_general_amg(cparams, label="fallback"), dtype
-            )
+        # the whole-mesh layouts run the plain α=1 reference iteration with
+        # a Jacobi budget: over-relaxation, Anderson and the AMG
+        # preconditioner stay on the general path, which honours them
+        general_only = (s.relaxation != 1.0 or s.acceleration is not None
+                        or s.preconditioner == "amg")
+        if s.lattice_fast_path and general_only and s.verbose >= 1:
+            print("Solver: relaxation/acceleration/amg active — whole-mesh "
+                  "layouts disabled (general path honours them)")
+        if s.lattice_fast_path and not general_only:
+            self._route_fast_path()
 
-        self._step_fn = jax.jit(self._make_step(), donate_argnums=(0,))
+        self._step_fn = jax.jit(highest(self._make_step()),
+                                donate_argnums=(0,))
 
         if s.verbose >= 1:
             print(
@@ -567,14 +520,11 @@ class System:
                 "acceleration and residual_tol cannot be combined"
             )
         dense_refine = self.settings.dense_refine_steps
-        cg_fused = self.settings.cg_backend == "fused"
-        cg_kernel = self.settings.cg_backend == "kernel"
         dia_offsets = getattr(self, "_dia_offsets", None)
         #: dual residual (needs the z-contribution columns) only when
         #: explicitly requested; the primal residual (cheap, via the
         #: dual-update identity Dx - z = u' - u) also drives residual_tol.
-        #: collect_residuals="primal" skips the dual (and lets the
-        #: whole-timestep fast path emit residuals in-kernel)
+        #: collect_residuals="primal" skips the dual
         collect_dual = self.settings.collect_residuals is True
         collect = (bool(self.settings.collect_residuals)
                    or early_tol is not None)
@@ -676,8 +626,8 @@ class System:
                 Tz = None
                 if mode in ("ell", "dia"):
                     # scatter-free RHS: per-element contributions gathered
-                    # through the precomputed vertex incidence (TPU scatters
-                    # serialize; this is a gather + sum)
+                    # through the precomputed vertex incidence (a gather +
+                    # sum: deterministic, no scatter-add)
                     width = 6 if collect_dual else 3
                     contribs = []
                     for f in forces:
@@ -712,33 +662,12 @@ class System:
                     for _ in range(dense_refine):
                         r = b - ell_apply(new_x, sv["ell_idx"], sv["ell_vals"])
                         new_x = new_x + sv["A_inv"] @ r
-                elif mode == "dia":
-                    from ..ops.pallas.cg_dia import cg_dia_solve
-
-                    sv = params["_solver"]
-                    new_x = sched_solve(i, lambda k: cg_dia_solve(
-                        b, curr_x, diag, sv["dia_vals"], dia_offsets,
-                        k if cg_fixed is not None else 25,
-                    ))
-                elif mode == "ell" and cg_fixed is not None and cg_kernel:
-                    from ..ops.pallas.cg_ell import cg_ell_solve
-
-                    sv = params["_solver"]
-                    new_x = sched_solve(i, lambda k: cg_ell_solve(
-                        b, curr_x, diag, sv["ell_idx"], sv["ell_vals"], k
-                    ))
-                elif mode == "ell" and cg_fixed is not None and cg_fused:
-                    from ..ops.pallas.cg_step import pcg_solve_fixed_fused
-
-                    sv = params["_solver"]
-                    new_x = sched_solve(i, lambda k: pcg_solve_fixed_fused(
-                        lambda y: ell_apply(y, sv["ell_idx"], sv["ell_vals"]),
-                        b, curr_x, diag, k,
-                    ))
                 else:
+                    sv = params.get("_solver")
                     if mode == "ell":
-                        sv = params["_solver"]
                         A_op = lambda y: ell_apply(y, sv["ell_idx"], sv["ell_vals"])
+                    elif mode == "dia":
+                        A_op = lambda y: dia_apply(y, dia_offsets, sv["dia_vals"])
                     else:
                         A_op = lambda y: A_hat_apply(y, masses, dt2, cparams)
                     if amg_vcycle is not None:
@@ -763,6 +692,8 @@ class System:
                     elif cg_fixed is not None:
                         new_x = sched_solve(i, lambda k: pcg_solve_fixed(
                             A_op, b, curr_x, diag, k)[0])
+                    elif mode == "dia":
+                        new_x = pcg_solve_fixed(A_op, b, curr_x, diag, 25)[0]
                     else:
                         new_x, _ = pcg_solve(
                             A_op, b, curr_x, diag, cg_tol, cg_iters
@@ -807,8 +738,8 @@ class System:
                 # masked early exit with STATIC control flow: the fori_loop
                 # always runs `iters` times, but once the primal residual
                 # beats the tolerance every later iteration is frozen to a
-                # no-op (data-dependent while_loop faults the TPU at ~100k
-                # elements; this formulation is scale-safe)
+                # no-op (static control flow: no host-visible loop
+                # condition per iteration)
                 def masked(i, cd):
                     c, done = cd
                     new_c = iteration(i, c)
@@ -844,13 +775,7 @@ class System:
             cb(self)
         if self._lattice is not None:
             self._lattice.step()
-            if getattr(self._lattice, "last_primal", None) is not None:
-                self.last_aux = {
-                    "primal_residual": self._lattice.last_primal[0]
-                }
-                if getattr(self._lattice, "last_dual", None) is not None:
-                    self.last_aux["dual_residual"] = \
-                        self._lattice.last_dual[0]
+            self._lattice_aux()
             self.elapsed_s += self.settings.timestep_s
             return True
         self.state, self.last_aux = self._step_fn(self.state, self.params)
@@ -871,19 +796,32 @@ class System:
 
             return jax.lax.scan(body, state, None, length=n_steps)
 
-        return jax.jit(rollout, donate_argnums=(0,))
+        return jax.jit(highest(rollout), donate_argnums=(0,))
+
+    def _lattice_aux(self):
+        """last_aux of a whole-mesh layout step: (admm_iters,) residuals
+        when the layout collects them."""
+        lat = self._lattice
+        if lat.last_primal is not None:
+            self.last_aux = {"primal_residual": lat.last_primal}
+            if getattr(lat, "last_dual", None) is not None:
+                self.last_aux["dual_residual"] = lat.last_dual
 
     def run(self, n_steps: int):
         """Advance n_steps entirely on device (no per-step callbacks)."""
         if self._lattice is not None:
-            self._lattice.run(n_steps)
-            if getattr(self._lattice, "last_primal", None) is not None:
-                # last kernel window's (window_steps, admm_iters)
-                self.last_aux = {
-                    "primal_residual": self._lattice.last_primal
-                }
-                if getattr(self._lattice, "last_dual", None) is not None:
-                    self.last_aux["dual_residual"] = self._lattice.last_dual
+            if not self._lattice.collect_residuals:
+                self._lattice.run(n_steps)
+            else:
+                # stacked (n_steps, admm_iters) residuals, as the rollout
+                auxs = []
+                for _ in range(n_steps):
+                    self._lattice.step()
+                    self._lattice_aux()
+                    auxs.append(self.last_aux)
+                if auxs:
+                    self.last_aux = jax.tree_util.tree_map(
+                        lambda *a: jnp.stack(a), *auxs)
             self.elapsed_s += n_steps * self.settings.timestep_s
             return True
         key = ("_rollout", n_steps)
@@ -896,60 +834,38 @@ class System:
         self.last_aux = aux
         return True
 
-    def _route_fast_path(self, mode):
-        """Try to engage a whole-timestep kernel for the current scene
-        and params. Sets self._lattice/_to_canon (or leaves _lattice
-        None with a verbose note)."""
-        s = self.settings
-        from .banded import banded_from_system
-        from .cloth import cloth_from_system
-        from .lattice import lattice_from_system
+    def _route_fast_path(self):
+        """Engage a whole-mesh layout for the current scene: the banded tet
+        layout, else the grid-cloth layout, each stepped by the XLA program
+        of its sharded stepper on a one-device mesh. Leaves _lattice None
+        (general path) when neither qualifies."""
+        from jax.sharding import Mesh
 
-        # the banded whole-timestep kernel is both the most general
-        # (no stencil structure needed — any dia-banded numbering, or
-        # ANY topology via the uell fallback planes) and, measured on
-        # the chip, the fastest, so it is tried FIRST; the lattice
-        # kernel remains as fallback for meshes the banded window
-        # rejects, and the cloth kernel handles triangle grids
-        out = banded_from_system(self)
-        if out is None and s.preconditioner != "amg":
-            # the lattice kernel has no multigrid mode — engaging it
-            # under preconditioner='amg' would silently undo the
-            # matched-residual guarantee
-            out = lattice_from_system(self)
+        from ..parallel.banded_spmd import sharded_banded_from_system
+        from ..parallel.cloth_spmd import sharded_cloth_from_system
+
+        mesh = Mesh(np.array(jax.devices()[:1]), ("elem",))
+        out = sharded_banded_from_system(self, mesh)
         if out is None:
-            # the cloth kernel supports the in-kernel 2D multigrid
-            # (ClothStepper(multigrid=True)); returns None if the
-            # grid does not qualify
-            out = cloth_from_system(self)
-        if out is None and s.preconditioner == "amg" and mode == "dia":
-            raise ValueError(
-                "preconditioner='amg' with global_solver='dia' needs "
-                "a whole-timestep kernel with in-kernel multigrid — "
-                "the banded kernel on a full tet grid, or the cloth "
-                "kernel on a full triangle grid, both in nested "
-                "numbering (core/mg.py) — and the scene did not "
-                "qualify; use global_solver='ell' for the "
-                "general-path AMG instead"
-            )
+            out = sharded_cloth_from_system(self, mesh)
         if out is not None:
             self._lattice, self._to_canon = out
-            if s.verbose >= 1:
-                print("Solver: whole-timestep fast path engaged "
+            if self.settings.verbose >= 1:
+                print("Solver: whole-mesh layout engaged "
                       f"(model={self._lattice.model})")
-        elif s.verbose >= 1:
-            print("Solver: scene does not qualify for a whole-timestep "
-                  "fast path; using the general solver")
+        elif self.settings.verbose >= 1:
+            print("Solver: scene does not qualify for a whole-mesh "
+                  "layout; using the general solver")
 
     def recompute_weights(self):
         """After runtime weight edits (poordillo release path,
         System.cpp:159-179). CG mode needs nothing; dense re-inverts and
-        ELL re-assembles (both host-side, like the reference's
-        re-factorization but cheaper). When a whole-timestep kernel is
-        engaged, its packed parameter planes (anchor weights, materials,
-        matvec diagonals, MG/AMG hierarchies) are REBUILT from the
-        edited params with the live plane state carried over — without
-        this the kernel would keep stepping stale weights silently."""
+        ELL/DIA re-assemble (both host-side, like the reference's
+        re-factorization but cheaper), refreshing the AMG values. When a
+        whole-mesh layout is engaged, its packed parameter planes (anchor
+        weights, materials, matvec diagonals) are REBUILT from the edited
+        params with the live state carried over — without this the layout
+        would keep stepping stale weights silently."""
         if self._solver_mode == "dense":
             cparams = {
                 k: jax.tree_util.tree_map(np.asarray, self.params[k])
@@ -975,6 +891,7 @@ class System:
             }
             dt_ = self.settings.dtype
             inc = self.params["_solver"]["inc_idx"]
+            amg_old = self.params["_solver"].get("amg")
             if self._solver_mode == "dia":
                 offs, dia_vals, diag = assemble_A_hat_dia(
                     self.n_nodes, self._mi, self.settings.timestep_s, cparams
@@ -989,55 +906,35 @@ class System:
                 ell_idx, ell_vals, diag = assemble_A_hat_ell(
                     self.n_nodes, self._mi, self.settings.timestep_s, cparams
                 )
-                amg_old = self.params["_solver"].get("amg")
                 self.params["_solver"] = {
                     "ell_idx": jnp.asarray(ell_idx),
                     "ell_vals": jnp.asarray(ell_vals, dt_),
                     "diag": jnp.asarray(diag, dt_),
                     "inc_idx": inc,
                 }
-                if amg_old is not None:
-                    from .amg import rebuild_amg_values
-                    from .solver import _assemble_A_hat_csr
+            if amg_old is not None:
+                from .amg import rebuild_amg_values
+                from .solver import _assemble_A_hat_csr
 
-                    A = _assemble_A_hat_csr(
-                        self.n_nodes, self._mi, self.settings.timestep_s,
-                        cparams,
-                    )
-                    host = jax.tree_util.tree_map(np.asarray, amg_old)
-                    self.params["_solver"]["amg"] = _cast_tree(
-                        rebuild_amg_values(A, host, self._amg_meta), dt_
-                    )
+                A = _assemble_A_hat_csr(
+                    self.n_nodes, self._mi, self.settings.timestep_s,
+                    cparams,
+                )
+                host = jax.tree_util.tree_map(np.asarray, amg_old)
+                self.params["_solver"]["amg"] = _cast_tree(
+                    rebuild_amg_values(A, host, self._amg_meta), dt_
+                )
         if self._lattice is not None:
-            # re-route the whole-timestep kernel on the edited params and
-            # carry its live plane state (packing is deterministic given
+            # re-pack the layout's parameter planes from the edited params,
+            # keeping its live state (the packing is deterministic given
             # the unchanged topology)
-            old = self._lattice
-            st = old.state
-            self._lattice = None
-            self._route_fast_path(self._solver_mode)
-            new = self._lattice
-            if new is None or new.model != old.model:
-                raise ValueError(
-                    "recompute_weights: the edited scene no longer routes "
-                    f"onto the same whole-timestep kernel (was "
-                    f"{old.model!r}); rebuild the System for this edit"
-                )
-            shp = lambda t: jax.tree_util.tree_map(  # noqa: E731
-                lambda a: tuple(jnp.shape(a)), t)
-            if shp(st) != shp(new.state):
-                raise ValueError(
-                    "recompute_weights: the edit changed the kernel's "
-                    "packed state layout (e.g. an ELL repack); rebuild "
-                    "the System for this edit"
-                )
-            new.state = st
+            self._lattice.refresh_params()
 
     # -------------------------------------------------------- checkpoints
 
     def save_checkpoint(self, path: str) -> None:
         """Checkpoint the live simulation state — CORRECT on both the
-        general path (state pytree) and the whole-timestep fast paths
+        general path (state pytree) and the whole-mesh layouts
         (whose live state lives in the stepper's packed planes; the
         general `self.state` is stale there). Restore into an
         identically-constructed System with `load_checkpoint` (packing
@@ -1062,7 +959,7 @@ class System:
             if "_fast_path" not in tree:
                 raise ValueError(
                     "checkpoint was saved from the general path but this "
-                    "System runs a whole-timestep fast path — rebuild "
+                    "System runs a whole-mesh layout — rebuild "
                     "with the same configuration it was saved from"
                 )
             self.elapsed_s = float(np.asarray(tree["_elapsed_s"]))
@@ -1110,13 +1007,7 @@ class System:
             lat = self._lattice
             xc = np.empty_like(value)
             xc[np.asarray(self._to_canon)] = value
-            if hasattr(lat, "set_positions"):  # banded 2D layout
-                lat.set_positions(xc)
-            else:  # lattice/cloth plane layout
-                pad = lat.N - lat.n_nodes
-                lat.state["x"] = jnp.asarray(
-                    np.pad(xc.T, ((0, 0), (0, pad))), lat.dtype
-                )
+            lat.set_positions(xc)
         elif self.initialized:
             vi = value if self._i2o is None else value[self._i2o]
             self.state["x"] = jnp.asarray(vi, self.settings.dtype)
@@ -1139,13 +1030,7 @@ class System:
             lat = self._lattice
             vc = np.empty_like(vv)
             vc[np.asarray(self._to_canon)] = vv
-            if hasattr(lat, "set_velocities"):  # banded 2D layout
-                lat.set_velocities(vc)
-            else:  # lattice/cloth plane layout
-                pad = lat.N - lat.n_nodes
-                lat.state["v"] = jnp.asarray(
-                    np.pad(vc.T, ((0, 0), (0, pad))), lat.dtype
-                )
+            lat.set_velocities(vc)
             return
         if self._i2o is not None:
             vv = vv[self._i2o]

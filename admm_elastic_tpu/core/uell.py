@@ -1,7 +1,7 @@
 """Windowed per-row-offset ELL ("uell") packing for ARBITRARY tet meshes.
 
-The banded whole-timestep kernel's global CG needs a VMEM-resident matvec
-whose every op is a full-plane vector op. For meshes whose numbering puts
+The banded whole-timestep layout's global CG needs a matvec whose every
+op is a full-plane vector op. For meshes whose numbering puts
 A_hat on a bounded set of flat diagonals the sparse-DIAgonal form is ideal
 (static shifts, 100% fill) — but a genuinely unstructured mesh (e.g. a
 Delaunay tetrahedralization) admits NO numbering with a small shared offset
@@ -10,12 +10,12 @@ fallback format:
 
   A is stored as per-ROW-OFFSET ELL slots. A slot (q, k) holds at most one
   entry per LANDING position t: column lane plane cc and value plane val,
-  both (Nr, 128). The kernel op is
+  both (Nr, 128). The matvec op is
 
       out += val * take_along_axis(row_shift(x, q), cc, axis=1)
 
-  — a static row shift (q rows), one per-sublane lane shuffle (a native
-  Mosaic primitive) and one multiply-add. Only the ROW distance
+  — a static row shift (q rows), one per-row lane gather and one
+  multiply-add. Only the ROW distance
   q = row(col) - row(t) must match per slot; lanes are free per entry,
   which is exactly what an irregular stencil needs.
 
@@ -34,10 +34,9 @@ Capacity per (t, q) is capped at a high quantile of the count distribution
 planes that only exist for a few outlier rows at the cost of a few hundred
 fold entries.
 
-This keeps the whole-timestep single-kernel ADMM path available for ANY
-tet mesh — the reference's topology-agnostic LDLT global step
-(/root/reference/deps/admm-elastic-sca/src/system/System.cpp:140) has no
-structure requirement either; this is the TPU-native equivalent.
+This keeps the banded whole-timestep layout available for ANY tet mesh —
+the reference's topology-agnostic LDLT global step (System.cpp:140) has no
+structure requirement either.
 """
 
 from __future__ import annotations
@@ -248,9 +247,8 @@ def pack_uell_auto(rows, cols, vals, vertices, max_slots=160,
     candidates, measured by total plane count (slots + fold ops) — the
     per-CG-iteration matvec cost is linear in it. Packing is host-side
     and ~0.3 s per candidate at 100k tets, so trying a handful at init
-    is free relative to kernel compile time. Measured on the
-    delaunay100k workload this picks 68 planes where the previous fixed
-    (512, 0.99) choice produced 89.
+    is cheap relative to compilation. On the delaunay100k mesh this picks
+    68 planes where a fixed (512, 0.99) choice produces 89.
 
     Returns (packed, positions) for the best candidate, or raises
     ValueError when none fits max_slots."""

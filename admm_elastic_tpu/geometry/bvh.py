@@ -219,7 +219,7 @@ def _ray_triangle(origin, direction, tri, eps=1e-12):
 
 def batched_closest_hit(vertices, faces, origins, directions):
     """Brute-force vmappable closest-hit for many rays on device (jnp):
-    O(rays x faces) but fully parallel — the right shape for TPU when
+    O(rays x faces) but fully parallel — the right shape for a device when
     rays x faces is moderate. Returns (t (R,), face (R,))."""
     import jax.numpy as jnp
 

@@ -219,7 +219,7 @@ def make_plane_grid(nx: int, ny: int, size: float = 1.0) -> TriMesh:
     vertices only, each quad split into two triangles along a consistent
     diagonal. Unlike make_sym_plane (the reference's X-crossed layout,
     DefaultBuilders/make_sym_plane), the vertex set is a regular grid, so
-    A_hat collapses onto constant diagonals and the single-kernel dia CG
+    A_hat collapses onto constant diagonals and the dia CG
     applies (after canonical renumbering if needed).
 
     Spans [-size, size]^2 at z=0 regardless of tessellation, matching

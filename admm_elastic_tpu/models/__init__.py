@@ -1,5 +1,5 @@
 """Constraint ("force") batches: struct-of-array element sets with batched
-proximal projections — the TPU-native replacement for the reference's
+proximal projections — the batched replacement for the reference's
 per-object virtual-dispatch Force hierarchy (Force.hpp:37-57)."""
 
 from .base import ForceBatch

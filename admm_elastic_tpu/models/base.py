@@ -2,7 +2,7 @@
 
 The reference treats each constraint as an object with virtual
 `get_selector` / `project` methods dispatched per-force inside an OpenMP loop
-(System.cpp:57-58). On TPU every constraint type instead becomes a
+(System.cpp:57-58). Here every constraint type instead becomes a
 struct-of-arrays batch with
 
   * ``params``: arrays that may change at runtime without recompiling —

@@ -74,169 +74,18 @@ def _reconstruct_plain(U, V, s_mod, s2_sign):
     return jnp.einsum("eij,ej,ekj->eik", U, s, V)
 
 
-class _PlaneLayoutMixin:
-    """Plane-layout (9, E_padded) Dx/u/z handling for pallas-backed tet
-    forces: the fused kernels consume/produce structure-of-planes arrays, and
-    these overrides keep that layout across the WHOLE ADMM iteration (Dx is
-    produced plane-directly by one einsum, the RHS contribution consumes
-    planes directly) — zero relayout ops on the hot path.
-
-    Plane convention: planes[3a+b, e] = canonical[e, b, a] (i.e. F_{a,b} of
-    the deformation gradient; see _to_planes)."""
-
-    def _padded_E(self, E=None):
-        """Kernel-block padding for E elements. E defaults to this force's
-        global element count; the per-shard SPMD path (parallel/spmd.py)
-        passes LOCAL params whose shapes drive all sizes, so every method
-        below derives E from the arrays rather than from self."""
-        from ..ops.pallas.tet_local import BLOCK
-
-        if E is None:
-            E = self.n_elements
-        return -(-E // BLOCK) * BLOCK
-
-    def _to_planes(self, rows, pad, fill=1.0):
-        """(E,R,3) canonical rows -> (9, E+pad) F-layout planes."""
-        E = rows.shape[0]
-        planes = _F_of(rows).reshape(E, 9).T
-        if pad:
-            planes = jnp.pad(planes, ((0, 0), (0, pad)), constant_values=fill)
-        return planes
-
-    def _from_planes(self, planes, E):
-        return _rows_of(planes[:, :E].T.reshape(E, 3, 3))
-
-    def _coeff_planes(self, params):
-        """cp[4b+k, e] = coeff[e,b,k] = B[e,k,b], padded (12, Ep) — the
-        selector layout the fused local+RHS kernels consume."""
-        cp = np.transpose(params["coeff"], (1, 2, 0)).reshape(12, -1)
-        Ep = self._padded_E(cp.shape[1])
-        return np.pad(cp, ((0, 0), (0, Ep - cp.shape[1])))
-
-    def _gathered_planes(self, params, x):
-        """xg[3k+a, e] = x[tet[e,k], a], padded (12, Ep)."""
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        xg = x[params["indices"]].reshape(E, 12).T
-        if pad:
-            xg = jnp.pad(xg, ((0, 0), (0, pad)))
-        return xg
-
-    def _contrib_flat(self, contrib, E):
-        """(12, Ep) contribution planes -> (E*4, 3) flat rows matching the
-        unfused rhs_contribution layout."""
-        return contrib[:, :E].T.reshape(E * 4, 3)
-
-    def _contrib_flat6(self, contrib, contribz, E):
-        """Two (12, Ep) contribution plane blocks -> (E*4, 6) flat rows
-        (cols 0:3 RHS, 3:6 dual-residual z rows)."""
-        return jnp.concatenate(
-            [self._contrib_flat(contrib, E), self._contrib_flat(contribz, E)],
-            axis=1,
-        )
-
-    def primal_piece(self, params, u_new, u_old):
-        if self.backend != "pallas":
-            return super().primal_piece(params, u_new, u_old)
-        E = params["weight"].shape[0]
-        du = (u_new - u_old)[:, :E]
-        w2 = params["weight"] ** 2
-        return jnp.sum(w2 * jnp.sum(du * du, axis=0))
-
-    def rhs_contribution6(self, params, z, u):
-        if self.backend != "pallas":
-            return super().rhs_contribution6(params, z, u)
-        E = params["weight"].shape[0]
-        w2 = params["weight"] ** 2
-        zu3 = (z - u).reshape(3, 3, -1)[:, :, :E]
-        z3 = z.reshape(3, 3, -1)[:, :, :E]
-        czu = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, zu3)
-        cz = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, z3)
-        return jnp.concatenate(
-            [czu.reshape(-1, 3), cz.reshape(-1, 3)], axis=1
-        )
-
-
-    def dual_init(self, np_module=np):
-        if self.backend != "pallas":
-            return super().dual_init(np_module)
-        return np_module.zeros((9, self._padded_E()))
-
-    def compute_Dx(self, params, x):
-        if self.backend != "pallas":
-            return super().compute_Dx(params, x)
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        verts = x[params["indices"]]  # (E,K,3)
-        planes = jnp.einsum("ebk,eka->abe", params["coeff"], verts).reshape(9, E)
-        if pad:
-            planes = jnp.pad(planes, ((0, 0), (0, pad)))
-        return planes
-
-    def rhs_contribution(self, params, z, u):
-        if self.backend != "pallas":
-            return super().rhs_contribution(params, z, u)
-        E = params["weight"].shape[0]
-        y3 = (z - u).reshape(3, 3, -1)[:, :, :E]  # [a,b,e] = ycan[e,b,a]
-        w2 = params["weight"] ** 2
-        c = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, y3)
-        return c.reshape(-1, 3)
-
-    def scatter_rhs(self, params, z, u, n_vertices):
-        if self.backend != "pallas":
-            return super().scatter_rhs(params, z, u, n_vertices)
-        from ..ops.segment import coeff_apply_T
-
-        w2 = params["weight"] ** 2
-        return coeff_apply_T(
-            params["coeff"], params["indices"], w2,
-            self._planes_to_canonical(z - u, params["weight"].shape[0]),
-            n_vertices,
-        )
-
-    def _planes_to_canonical(self, planes, E=None):
-        if E is None:
-            E = self.n_elements
-        return jnp.transpose(planes.reshape(3, 3, -1)[:, :, :E], (2, 1, 0))
-
-    def residual_pieces(self, params, Dx, z, z_prev, n_vertices, dt2):
-        if self.backend != "pallas":
-            return super().residual_pieces(params, Dx, z, z_prev, n_vertices, dt2)
-        from ..ops.segment import coeff_apply_T
-
-        w = params["weight"][:, None, None]
-        dxc = self._planes_to_canonical(Dx)
-        zc = self._planes_to_canonical(z)
-        zpc = self._planes_to_canonical(z_prev)
-        r2 = jnp.sum((w * (dxc - zc)) ** 2)
-        s = dt2 * coeff_apply_T(
-            params["coeff"], params["indices"], params["weight"] ** 2,
-            zc - zpc, n_vertices,
-        )
-        return r2, s
-
-
-class LinearTetStrain(_PlaneLayoutMixin, ForceBatch):
+class LinearTetStrain(ForceBatch):
     """Corotational/ARAP-style tet: project F to the closest rotation and mix
-    with k = stiffness * volume (TetForce.cpp:112-153).
-
-    backend: 'xla' (vmapped jnp, default) or 'pallas' (fused VPU kernel,
-    ops/pallas/tet_local.py; requires a TPU backend and pads internally to
-    the kernel block size).
-    """
+    with k = stiffness * volume (TetForce.cpp:112-153)."""
 
     R, K = 3, 4
 
-    def __init__(self, tets: np.ndarray, stiffness, weight_scale=1.0,
-                 backend="xla"):
+    def __init__(self, tets: np.ndarray, stiffness, weight_scale=1.0):
         self.tets = np.asarray(tets, dtype=np.int32).reshape(-1, 4)
         self.stiffness = np.broadcast_to(
             np.asarray(stiffness, dtype=np.float64), (len(self.tets),)
         ).copy()
         self.weight_scale = weight_scale  # parsed but unused, like the reference
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}")
-        self.backend = backend
 
     @property
     def n_elements(self) -> int:
@@ -247,70 +96,15 @@ class LinearTetStrain(_PlaneLayoutMixin, ForceBatch):
         params = _tet_selector_params(self.tets, B)
         params["weight"] = np.sqrt(self.stiffness) * np.sqrt(vol)
         params["k"] = self.stiffness * vol
-        if self.backend == "pallas":
-            params["coeff_p"] = self._coeff_planes(params)
         return params, {}
 
-    @property
-    def supports_fused_local_rhs(self) -> bool:
-        return self.backend == "pallas"
-
-    def fused_local_rhs(self, params, x, u, state, with_z=False):
-        """One-kernel ARAP pipeline for the ell/dia global modes
-        (ops/pallas/tet_local.arap_local_step_fused). with_z additionally
-        returns the dual-residual z-contribution columns ((E*4, 6) flat)."""
-        from ..ops.pallas.tet_local import arap_local_step_fused
-
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        xg = self._gathered_planes(params, x)
-        w2 = jnp.pad(params["weight"] ** 2, (0, pad), constant_values=1.0)
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        out = arap_local_step_fused(
-            xg, u, params["coeff_p"], w2, k, emit_z=with_z
-        )
-        if with_z:
-            z9, unew9, contrib, contribz = out
-            return z9, unew9, state, self._contrib_flat6(contrib, contribz, E)
-        z9, unew9, contrib = out
-        return z9, unew9, state, self._contrib_flat(contrib, E)
-
-    def _project_xla(self, Dx, u, params, state):
+    def project(self, Dx, u, params, state):
         F = _F_of(Dx + u)
         R = jax.vmap(polar_project)(F)
         k = params["k"][:, None, None]
         w2 = (params["weight"] ** 2)[:, None, None]
         zF = (k * R + w2 * F) / (w2 + k)
         return _rows_of(zF), state
-
-    def project(self, Dx, u, params, state):
-        """Canonical-layout entry point (tests/direct API). The pallas branch
-        converts to planes around the kernel; the System's hot path uses
-        project_with_dual natively instead."""
-        if self.backend == "pallas":
-            E = Dx.shape[0]
-            pad = self._padded_E(E) - E
-            z9, _, st = self.project_with_dual(
-                self._to_planes(Dx, pad), self._to_planes(u, pad, fill=0.0),
-                params, state,
-            )
-            return self._from_planes(z9, E), st
-        return self._project_xla(Dx, u, params, state)
-
-    def project_with_dual(self, Dx, u, params, state):
-        """Native layout: planes (9, E_padded) when backend='pallas'
-        (produced by compute_Dx, consumed by rhs_contribution)."""
-        if self.backend != "pallas":
-            z, st = self.project(Dx, u, params, state)
-            return z, u + Dx - z, st
-        from ..ops.pallas.tet_local import arap_local_step
-
-        E = params["weight"].shape[0]
-        pad = self._padded_E(E) - E
-        w2 = jnp.pad((params["weight"] ** 2), (0, pad), constant_values=1.0)
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        z9, unew9 = arap_local_step(Dx, u, w2, k)
-        return z9, unew9, state
 
 
 class TetVolume(ForceBatch):
@@ -418,12 +212,16 @@ def stvk_grad_hess(sigma, mu, lam, k, sigma0):
     return g, H
 
 
-class HyperElasticTet(_PlaneLayoutMixin, ForceBatch):
+class HyperElasticTet(ForceBatch):
     """General hyperelastic tet: oriented SVD -> minimize the proximal
     objective over the 3 singular values -> z = U diag(sigma*) V^T
     (TetForce.cpp:303-364). The reference's per-element L-BFGS with
     More-Thuente line search is replaced by a fixed-iteration safeguarded
     Newton (ops/newton.py) that vmaps over the batch.
+
+    On a GPU the step runs as one Pallas kernel per ADMM iteration
+    (ops/pallas/nh_local.py, same math on the same layouts); `project`
+    is the XLA form and the reference the kernel is tested against.
 
     model: 'nh' | 'stvk'. k = min(mu, lambda); w = sqrt(k * volume)
     (TetForce.cpp:306-307).
@@ -432,7 +230,7 @@ class HyperElasticTet(_PlaneLayoutMixin, ForceBatch):
     R, K = 3, 4
     SIGMA_FLOOR = 1e-8
 
-    def __init__(self, tets, mu, lam, max_iters=10, model="nh", backend="xla"):
+    def __init__(self, tets, mu, lam, max_iters=10, model="nh"):
         self.tets = np.asarray(tets, dtype=np.int32).reshape(-1, 4)
         E = len(self.tets)
         self.mu = np.broadcast_to(np.asarray(mu, np.float64), (E,)).copy()
@@ -441,15 +239,15 @@ class HyperElasticTet(_PlaneLayoutMixin, ForceBatch):
         if model not in ("nh", "stvk"):
             raise ValueError(f"unknown hyperelastic model {model!r}")
         self.model = model
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}")
-        if backend == "pallas" and model not in ("nh", "stvk"):
-            raise ValueError("pallas backend implements nh and stvk")
-        self.backend = backend
 
     @property
     def n_elements(self) -> int:
         return len(self.tets)
+
+    @staticmethod
+    def uses_kernel() -> bool:
+        """Whether the local step runs as the Pallas kernel: on a GPU."""
+        return jax.default_backend() == "gpu"
 
     def build(self, x, masses, dt):
         B, vol = build_tet_basis(x, self.tets)
@@ -460,55 +258,30 @@ class HyperElasticTet(_PlaneLayoutMixin, ForceBatch):
         params["mu"] = self.mu
         params["lam"] = self.lam
         # warm start persists across steps (TetForce.hpp:145 last_prox_result)
-        if self.backend == "pallas":
-            state = {"sigma": np.ones((3, self._padded_E()))}
-            # selector-coefficient planes for the fully fused local+RHS
-            # kernel (loop-invariant; precomputed so the hot loop does zero
-            # relayout work)
-            params["coeff_p"] = self._coeff_planes(params)
-        else:
-            state = {"sigma": np.ones((len(self.tets), 3))}
+        state = {"sigma": np.ones((len(self.tets), 3))}
         return params, state
 
     @property
     def supports_fused_local_rhs(self) -> bool:
-        return self.backend == "pallas"
+        return self.uses_kernel()
 
     def fused_local_rhs(self, params, x, u, state, with_z=False):
-        """One-kernel per-iteration element pipeline for the ell/dia global
-        modes: gathered positions in, (z, u', warm, D^T W^2 (z-u') flat
-        contribution rows) out — everything between the vertex gather and the
-        incidence gather runs inside ops/pallas/nh_local.nh_local_step_fused."""
+        """The per-iteration element pipeline for the ell/dia global modes
+        in one kernel: gathered positions in, (z, u', warm start, flat
+        D^T W^2 (z-u') rows) out (ops/pallas/nh_local.nh_local_step_fused).
+        with_z adds the D^T W^2 z rows of the dual residual ((E*4, 6))."""
         from ..ops.pallas.nh_local import nh_local_step_fused
 
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        xg = self._gathered_planes(params, x)
-        mu = jnp.pad(params["mu"], (0, pad), constant_values=1.0)
-        lam = jnp.pad(params["lam"], (0, pad), constant_values=1.0)
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        w2 = jnp.pad(params["weight"] ** 2, (0, pad))
         out = nh_local_step_fused(
-            xg, u, state["sigma"], params["coeff_p"], mu, lam, k, w2,
+            x[params["indices"]], u, state["sigma"], params["coeff"],
+            params["mu"], params["lam"], params["k"], params["weight"] ** 2,
             iters=self.max_iters, model=self.model, emit_z=with_z,
         )
-        if with_z:
-            z9, unew9, warm_new, contrib, contribz = out
-            flat = self._contrib_flat6(contrib, contribz, E)
-        else:
-            z9, unew9, warm_new, contrib = out
-            flat = self._contrib_flat(contrib, E)
-        return z9, unew9, {**state, "sigma": warm_new}, flat
+        z, unew, sigma = out[:3]
+        flat = jnp.concatenate([c.reshape(-1, 3) for c in out[3:]], axis=1)
+        return z, unew, {**state, "sigma": sigma}, flat
 
     def project(self, Dx, u, params, state):
-        if self.backend == "pallas":
-            E = Dx.shape[0]
-            pad = self._padded_E(E) - E
-            z9, _, st = self.project_with_dual(
-                self._to_planes(Dx, pad), self._to_planes(u, pad, fill=0.0),
-                params, state,
-            )
-            return self._from_planes(z9, E), st
         F = _F_of(Dx + u)
         U, s, V = jax.vmap(svd3x3_oriented)(F)
 
@@ -548,22 +321,12 @@ class HyperElasticTet(_PlaneLayoutMixin, ForceBatch):
         return _rows_of(zF), {**state, "sigma": sigma_star}
 
     def project_with_dual(self, Dx, u, params, state):
-        """Fused VPU kernel path (ops/pallas/nh_local.py): SVD + Newton +
-        reconstruct + dual update in one kernel; warm start carried in the
-        kernel's third output. Native layout = planes (9, E_padded) when
-        backend='pallas'; the warm start is stored padded (3, E_padded)."""
-        if self.backend != "pallas":
-            z, st = self.project(Dx, u, params, state)
-            return z, u + Dx - z, st
+        if not self.uses_kernel():
+            return super().project_with_dual(Dx, u, params, state)
         from ..ops.pallas.nh_local import nh_local_step
 
-        E = params["weight"].shape[0]
-        pad = self._padded_E(E) - E
-        mu = jnp.pad(params["mu"], (0, pad), constant_values=1.0)
-        lam = jnp.pad(params["lam"], (0, pad), constant_values=1.0)
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        z9, unew9, warm_new = nh_local_step(
-            Dx, u, state["sigma"], mu, lam, k, iters=self.max_iters,
-            model=self.model,
+        z, unew, sigma = nh_local_step(
+            Dx, u, state["sigma"], params["mu"], params["lam"], params["k"],
+            iters=self.max_iters, model=self.model,
         )
-        return z9, unew9, {**state, "sigma": warm_new}
+        return z, unew, {**state, "sigma": sigma}

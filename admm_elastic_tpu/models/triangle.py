@@ -57,131 +57,22 @@ def _rows_of(F):
     return jnp.swapaxes(F, 1, 2)
 
 
-class _TriPlaneMixin:
-    """Plane-layout (6, E_padded) Dx/u/z handling for the pallas-backed
-    triangle strain, mirroring models/tet._PlaneLayoutMixin for tets.
-    Plane convention: planes[2a+b, e] = F_{a,b} (canonical row r = column b,
-    component j = row a, i.e. canonical[e,r,j] = plane[2j+r])."""
-
-    def _padded_E(self, E=None):
-        from ..ops.pallas.tet_local import BLOCK
-
-        if E is None:
-            E = self.n_elements
-        return -(-E // BLOCK) * BLOCK
-
-    def _to_planes(self, rows, pad, fill=1.0):
-        E = rows.shape[0]
-        planes = _F_of(rows).reshape(E, 6).T
-        if pad:
-            planes = jnp.pad(planes, ((0, 0), (0, pad)), constant_values=fill)
-        return planes
-
-    def _from_planes(self, planes, E):
-        return _rows_of(planes[:, :E].T.reshape(E, 3, 2))
-
-    def _coeff_planes(self, params):
-        """cp[3b+k, e] = coeff[e,b,k] = B[e,k,b], padded (6, Ep)."""
-        cp = np.transpose(params["coeff"], (1, 2, 0)).reshape(6, -1)
-        Ep = self._padded_E(cp.shape[1])
-        return np.pad(cp, ((0, 0), (0, Ep - cp.shape[1])))
-
-    def _gathered_planes(self, params, x):
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        xg = x[params["indices"]].reshape(E, 9).T
-        if pad:
-            xg = jnp.pad(xg, ((0, 0), (0, pad)))
-        return xg
-
-    def _contrib_flat(self, contrib, E):
-        return contrib[:, :E].T.reshape(E * 3, 3)
-
-    def dual_init(self, np_module=np):
-        if self.backend != "pallas":
-            return super().dual_init(np_module)
-        return np_module.zeros((6, self._padded_E()))
-
-    def compute_Dx(self, params, x):
-        if self.backend != "pallas":
-            return super().compute_Dx(params, x)
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        verts = x[params["indices"]]  # (E,3,3)
-        planes = jnp.einsum("ebk,eka->abe", params["coeff"], verts).reshape(6, E)
-        if pad:
-            planes = jnp.pad(planes, ((0, 0), (0, pad)))
-        return planes
-
-    def _planes_to_canonical(self, planes, E=None):
-        if E is None:
-            E = self.n_elements
-        return jnp.transpose(planes.reshape(3, 2, -1)[:, :, :E], (2, 1, 0))
-
-    def rhs_contribution(self, params, z, u):
-        if self.backend != "pallas":
-            return super().rhs_contribution(params, z, u)
-        E = params["weight"].shape[0]
-        y3 = (z - u).reshape(3, 2, -1)[:, :, :E]  # [j,r,e]
-        w2 = params["weight"] ** 2
-        c = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, y3)
-        return c.reshape(-1, 3)
-
-    def rhs_contribution6(self, params, z, u):
-        if self.backend != "pallas":
-            return super().rhs_contribution6(params, z, u)
-        E = params["weight"].shape[0]
-        w2 = params["weight"] ** 2
-        zu3 = (z - u).reshape(3, 2, -1)[:, :, :E]
-        z3 = z.reshape(3, 2, -1)[:, :, :E]
-        czu = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, zu3)
-        cz = jnp.einsum("erk,e,jre->ekj", params["coeff"], w2, z3)
-        return jnp.concatenate([czu.reshape(-1, 3), cz.reshape(-1, 3)],
-                               axis=1)
-
-    def scatter_rhs(self, params, z, u, n_vertices):
-        if self.backend != "pallas":
-            return super().scatter_rhs(params, z, u, n_vertices)
-        from ..ops.segment import coeff_apply_T
-
-        w2 = params["weight"] ** 2
-        return coeff_apply_T(
-            params["coeff"], params["indices"], w2,
-            self._planes_to_canonical(z - u, params["weight"].shape[0]),
-            n_vertices,
-        )
-
-    def primal_piece(self, params, u_new, u_old):
-        if self.backend != "pallas":
-            return super().primal_piece(params, u_new, u_old)
-        E = params["weight"].shape[0]
-        du = (u_new - u_old)[:, :E]
-        w2 = params["weight"] ** 2
-        return jnp.sum(w2 * jnp.sum(du * du, axis=0))
-
-
-class LimitedTriangleStrain(_TriPlaneMixin, ForceBatch):
+class LimitedTriangleStrain(ForceBatch):
     """Projective-dynamics triangle strain with strain limiting: project F to
     T = U2 V^T, mix with k = stiffness*area, then clamp the column norms of z
     into [limit_min, limit_max] (TriangleForce.cpp:79-113).
-    XML types `lineartrianglestrain` / `trianglestrain`.
-
-    backend: 'xla' (vmapped jnp, default) or 'pallas' (fused VPU kernel,
-    ops/pallas/tri_local.py)."""
+    XML types `lineartrianglestrain` / `trianglestrain`."""
 
     R, K = 2, 3
 
     def __init__(self, faces, stiffness, limit_min=0.0, limit_max=9999999.0,
-                 strain_limiting=True, backend="xla"):
+                 strain_limiting=True):
         self.faces = np.asarray(faces, dtype=np.int32).reshape(-1, 3)
         E = len(self.faces)
         self.stiffness = np.broadcast_to(np.asarray(stiffness, np.float64), (E,)).copy()
         self.limit_min = np.broadcast_to(np.asarray(limit_min, np.float64), (E,)).copy()
         self.limit_max = np.broadcast_to(np.asarray(limit_max, np.float64), (E,)).copy()
         self.strain_limiting = bool(strain_limiting)
-        if backend not in ("xla", "pallas"):
-            raise ValueError(f"unknown backend {backend!r}")
-        self.backend = backend
 
     @property
     def n_elements(self) -> int:
@@ -194,64 +85,9 @@ class LimitedTriangleStrain(_TriPlaneMixin, ForceBatch):
         params["k"] = self.stiffness * area
         params["limit_min"] = self.limit_min
         params["limit_max"] = self.limit_max
-        if self.backend == "pallas":
-            params["coeff_p"] = self._coeff_planes(params)
         return params, {}
 
-    @property
-    def supports_fused_local_rhs(self) -> bool:
-        return self.backend == "pallas"
-
-    def fused_local_rhs(self, params, x, u, state, with_z=False):
-        from ..ops.pallas.tri_local import tri_local_step_fused
-
-        E = params["indices"].shape[0]
-        pad = self._padded_E(E) - E
-        xg = self._gathered_planes(params, x)
-        w2 = jnp.pad(params["weight"] ** 2, (0, pad))
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        lmin = jnp.pad(params["limit_min"], (0, pad))
-        lmax = jnp.pad(params["limit_max"], (0, pad), constant_values=1e9)
-        out = tri_local_step_fused(
-            xg, u, params["coeff_p"], w2, k, lmin, lmax,
-            limiting=self.strain_limiting, emit_z=with_z,
-        )
-        if with_z:
-            z6, unew6, contrib, contribz = out
-            flat = jnp.concatenate(
-                [self._contrib_flat(contrib, E),
-                 self._contrib_flat(contribz, E)], axis=1,
-            )
-        else:
-            z6, unew6, contrib = out
-            flat = self._contrib_flat(contrib, E)
-        return z6, unew6, state, flat
-
-    def project_with_dual(self, Dx, u, params, state):
-        if self.backend != "pallas":
-            z, st = self.project(Dx, u, params, state)
-            return z, u + Dx - z, st
-        from ..ops.pallas.tri_local import tri_local_step
-
-        E = params["weight"].shape[0]
-        pad = self._padded_E(E) - E
-        w2 = jnp.pad(params["weight"] ** 2, (0, pad))
-        k = jnp.pad(params["k"], (0, pad), constant_values=1.0)
-        lmin = jnp.pad(params["limit_min"], (0, pad))
-        lmax = jnp.pad(params["limit_max"], (0, pad), constant_values=1e9)
-        z6, unew6 = tri_local_step(Dx, u, w2, k, lmin, lmax,
-                                   limiting=self.strain_limiting)
-        return z6, unew6, state
-
     def project(self, Dx, u, params, state):
-        if self.backend == "pallas":
-            E = Dx.shape[0]
-            pad = self._padded_E(E) - E
-            z6, _, st = self.project_with_dual(
-                self._to_planes(Dx, pad), self._to_planes(u, pad, fill=0.0),
-                params, state,
-            )
-            return self._from_planes(z6, E), st
         F = _F_of(Dx + u)  # (E,3,2)
         U, s, V = jax.vmap(svd3x2)(F)
         T = jnp.einsum("eij,ekj->eik", U, V)  # U2 @ V^T, (E,3,2)

@@ -1,14 +1,5 @@
-"""Pallas TPU kernels: fused local steps and single-kernel CG solvers."""
+"""Pallas GPU kernels (Triton route)."""
 
-from .tet_local import arap_local_step, arap_local_step_reference
-from .nh_local import nh_local_step
-from .cg_step import cg_update, pcg_solve_fixed_fused
-from .cg_dia import cg_dia_solve
-from .cg_ell import cg_ell_solve
+from .nh_local import nh_local_step, nh_local_step_fused
 
-__all__ = [
-    "arap_local_step", "arap_local_step_reference",
-    "nh_local_step",
-    "cg_update", "pcg_solve_fixed_fused",
-    "cg_dia_solve", "cg_ell_solve",
-]
+__all__ = ["nh_local_step", "nh_local_step_fused"]

@@ -1,19 +1,27 @@
-"""Fused Pallas kernel for the NeoHookean hyperelastic tet local step.
+"""NeoHookean / StVK tet local step as one Pallas kernel (Triton route).
 
-One kernel per element block computes (TetForce.cpp:320-364 semantics):
+One program handles BLOCK elements and keeps every intermediate of the
+element pipeline in registers (TetForce.cpp:320-364 semantics):
 
     F      = Dx + u
     U,s,V  = oriented SVD(F)        (signed s2; proper rotations)
-    sigma* = argmin  psi_NH(sigma) + k/2 ||sigma - s||^2   (damped Newton,
-             fixed iterations, closed-form gradient/Hessian, parallel
-             backtracking {1, 1/2, 1/4, 1/16}, positivity floor)
+    sigma* = argmin  psi(sigma) + k/2 ||sigma - s||^2   (damped Newton,
+             fixed iterations, closed-form gradient/Hessian)
     z      = U diag(sigma*) V^T
     u'     = u + Dx - z
 
-entirely in VMEM with lane-parallel scalar arithmetic — the TPU equivalent of
-the reference's per-element L-BFGS loop. Layout matches tet_local.py:
-9 planes (9, E) for Dx/u/z, 3 planes (3, E) for the warm start, (1, E) for
-mu/lam/k.
+The XLA form of the same step (models/tet.py HyperElasticTet.project)
+runs each Newton iteration as its own fused kernels with the per-element
+temporaries in device memory; here the whole step is one launch. The math
+bodies are shared with the XLA banded stepper (ops/lanes.py).
+
+Operands use the force's canonical layouts: Dx/u/z (E, 3, 3) with
+Dx[e, b, a] = F[a][b], the warm start (E, 3), materials (E,). The fused
+variant takes the gathered vertices xg[e, k, a] = x[tet[e, k], a] and the
+selector coeff (E, 3, 4), applies the selector in-kernel and also returns
+the RHS rows w^2 D^T (z - u') as (E, 4, 3) (and w^2 D^T z for the dual
+residual when emit_z). Element counts need not be a multiple of BLOCK:
+the last program masks its loads and stores.
 """
 
 from __future__ import annotations
@@ -22,457 +30,128 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .tet_local import BLOCK, _jacobi_cs
+from ..lanes import hyper_prox
 
-_SWEEPS = 6
-SIGMA_FLOOR = 1e-8
-# Newton backtracking with a DEEP tail + always-on scaled gradient-step
-# candidates (see ops/newton.py _ALPHAS: a schedule stopping at 1/16 can
-# leave the iterate permanently stuck when the Hessian is ill-conditioned)
-_ALPHAS = (1.0, 0.5, 0.25, 0.0625, 1.0 / 64.0, 1.0 / 256.0)
-_GRAD_ALPHAS = (1.0, 0.0625)
+#: elements per program; the body holds ~100 live values per element
+BLOCK = 128
+NUM_WARPS = 4
 
 
-def _svd_columns(f, eps):
-    """f: 9 planes of F (row-major). Returns (U cols, V cols, s) where
-    U/V are 3 lists of 3 lane-arrays (columns) and s = (s0,s1,s2) signed."""
+def _make_kernel(E, iters, model, fused, emit_z):
+    def kernel(*refs):
+        i = pl.program_id(0)
+        sl = pl.ds(i * BLOCK, BLOCK)
+        mask = i * BLOCK + jax.lax.iota(jnp.int32, BLOCK) < E
 
-    def col(c):
-        return (f[c], f[3 + c], f[6 + c])
+        # constant indices as int32 like program_id (x64 mode would make
+        # Python ints int64, which the interpreter's slices refuse to mix)
+        def ld(ref, *idx, other=0.0):
+            idx = (sl,) + tuple(np.int32(q) for q in idx)
+            return plgpu.load(ref.at[idx], mask=mask, other=other)
 
-    def dotc(ca, cb):
-        a, b = col(ca), col(cb)
-        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+        def st(ref, val, *idx):
+            idx = (sl,) + tuple(np.int32(q) for q in idx)
+            plgpu.store(ref.at[idx], val, mask=mask)
 
-    a00, a11, a22 = dotc(0, 0), dotc(1, 1), dotc(2, 2)
-    a01, a02, a12 = dotc(0, 1), dotc(0, 2), dotc(1, 2)
-    scale = jnp.maximum(
-        jnp.maximum(jnp.maximum(jnp.abs(a00), jnp.abs(a11)), jnp.abs(a22)), 1.0
-    )
-    a00, a11, a22 = a00 / scale, a11 / scale, a22 / scale
-    a01, a02, a12 = a01 / scale, a02 / scale, a12 / scale
-
-    one = jnp.ones_like(a00)
-    zero = jnp.zeros_like(a00)
-    v = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
-
-    def rot_cols(p, q, c, s):
-        for r in range(3):
-            vp, vq = v[r][p], v[r][q]
-            v[r][p] = c * vp - s * vq
-            v[r][q] = s * vp + c * vq
-
-    for _ in range(_SWEEPS):
-        c, s = _jacobi_cs(a00, a11, a01, eps)
-        n00 = c * c * a00 - 2 * s * c * a01 + s * s * a11
-        n11 = s * s * a00 + 2 * s * c * a01 + c * c * a11
-        n02 = c * a02 - s * a12
-        n12 = s * a02 + c * a12
-        a00, a11, a01, a02, a12 = n00, n11, zero, n02, n12
-        rot_cols(0, 1, c, s)
-        c, s = _jacobi_cs(a00, a22, a02, eps)
-        n00 = c * c * a00 - 2 * s * c * a02 + s * s * a22
-        n22 = s * s * a00 + 2 * s * c * a02 + c * c * a22
-        n01 = c * a01 - s * a12
-        n12 = s * a01 + c * a12
-        a00, a22, a02, a01, a12 = n00, n22, zero, n01, n12
-        rot_cols(0, 2, c, s)
-        c, s = _jacobi_cs(a11, a22, a12, eps)
-        n11 = c * c * a11 - 2 * s * c * a12 + s * s * a22
-        n22 = s * s * a11 + 2 * s * c * a12 + c * c * a22
-        n01 = c * a01 - s * a02
-        n02 = s * a01 + c * a02
-        a11, a22, a12, a01, a02 = n11, n22, zero, n01, n02
-        rot_cols(1, 2, c, s)
-
-    w = [a00, a11, a22]
-    cols = [[v[0][c], v[1][c], v[2][c]] for c in range(3)]
-
-    def cswap(i, j):
-        swap = w[i] < w[j]
-        w[i], w[j] = jnp.where(swap, w[j], w[i]), jnp.where(swap, w[i], w[j])
-        for r in range(3):
-            ci, cj = cols[i][r], cols[j][r]
-            cols[i][r] = jnp.where(swap, cj, ci)
-            cols[j][r] = jnp.where(swap, ci, cj)
-
-    cswap(0, 1)
-    cswap(1, 2)
-    cswap(0, 1)
-
-    det = (
-        cols[0][0] * (cols[1][1] * cols[2][2] - cols[1][2] * cols[2][1])
-        - cols[1][0] * (cols[0][1] * cols[2][2] - cols[0][2] * cols[2][1])
-        + cols[2][0] * (cols[0][1] * cols[1][2] - cols[0][2] * cols[1][1])
-    )
-    sflip = jnp.where(det < 0, -1.0, 1.0)
-    for r in range(3):
-        cols[2][r] = cols[2][r] * sflip
-
-    def matvec(ci):
-        vc = cols[ci]
-        return [
-            f[0] * vc[0] + f[1] * vc[1] + f[2] * vc[2],
-            f[3] * vc[0] + f[4] * vc[1] + f[5] * vc[2],
-            f[6] * vc[0] + f[7] * vc[1] + f[8] * vc[2],
-        ]
-
-    b0, b1, b2 = matvec(0), matvec(1), matvec(2)
-
-    def norm3(x):
-        return jnp.sqrt(x[0] * x[0] + x[1] * x[1] + x[2] * x[2])
-
-    n0 = norm3(b0)
-    tol = eps * 16.0 * (jnp.sqrt(jnp.maximum(w[0] * scale, 0.0)) + eps)
-    ok0 = n0 > tol
-    inv0 = 1.0 / jnp.where(ok0, n0, 1.0)
-    u0 = [jnp.where(ok0, b0[kk] * inv0, 1.0 if kk == 0 else 0.0) for kk in range(3)]
-
-    d01 = u0[0] * b1[0] + u0[1] * b1[1] + u0[2] * b1[2]
-    p1 = [b1[kk] - d01 * u0[kk] for kk in range(3)]
-    n1 = norm3(p1)
-    ok1 = n1 > tol
-    inv1 = 1.0 / jnp.where(ok1, n1, 1.0)
-    au = [jnp.abs(u0[0]), jnp.abs(u0[1]), jnp.abs(u0[2])]
-    use_x = (au[0] <= au[1]) & (au[0] <= au[2])
-    use_y = (~use_x) & (au[1] <= au[2])
-    ax = [
-        jnp.where(use_x, 1.0, 0.0),
-        jnp.where(use_y, 1.0, 0.0),
-        jnp.where(use_x | use_y, 0.0, 1.0),
-    ]
-    dax = ax[0] * u0[0] + ax[1] * u0[1] + ax[2] * u0[2]
-    fb = [ax[kk] - dax * u0[kk] for kk in range(3)]
-    fbn = norm3(fb)
-    fb = [fb[kk] / jnp.where(fbn > 0, fbn, 1.0) for kk in range(3)]
-    u1 = [jnp.where(ok1, p1[kk] * inv1, fb[kk]) for kk in range(3)]
-
-    u2 = [
-        u0[1] * u1[2] - u0[2] * u1[1],
-        u0[2] * u1[0] - u0[0] * u1[2],
-        u0[0] * u1[1] - u0[1] * u1[0],
-    ]
-    U = [u0, u1, u2]
-    s = (
-        u0[0] * b0[0] + u0[1] * b0[1] + u0[2] * b0[2],
-        u1[0] * b1[0] + u1[1] * b1[1] + u1[2] * b1[2],
-        u2[0] * b2[0] + u2[1] * b2[1] + u2[2] * b2[2],
-    )
-    return U, cols, s
-
-
-def _stvk_value(s1, s2, s3, mu, lam, k, c1, c2, c3):
-    """StVK prox objective on lanes (TetForce.cpp:269-278)."""
-    e1 = 0.5 * (s1 * s1 - 1.0)
-    e2 = 0.5 * (s2 * s2 - 1.0)
-    e3 = 0.5 * (s3 * s3 - 1.0)
-    tr = e1 + e2 + e3
-    psi = mu * (e1 * e1 + e2 * e2 + e3 * e3) + 0.5 * lam * tr * tr
-    prox = 0.5 * k * ((s1 - c1) ** 2 + (s2 - c2) ** 2 + (s3 - c3) ** 2)
-    val = psi + prox
-    big = jnp.asarray(3.4e38, val.dtype)
-    return jnp.where((s1 > 0) & (s2 > 0) & (s3 > 0), val, big)
-
-
-def _nh_value(s1, s2, s3, mu, lam, k, c1, c2, c3):
-    """NH prox objective on lanes; +inf via big-where for non-positive sigma."""
-    det = s1 * s2 * s3
-    pos = det > 0
-    safe_det = jnp.where(pos, det, 1.0)
-    logdet = jnp.log(safe_det)
-    I1 = s1 * s1 + s2 * s2 + s3 * s3
-    psi = 0.5 * mu * (I1 - 2.0 * logdet - 3.0) + 0.5 * lam * logdet * logdet
-    prox = 0.5 * k * ((s1 - c1) ** 2 + (s2 - c2) ** 2 + (s3 - c3) ** 2)
-    val = psi + prox
-    big = jnp.asarray(3.4e38, val.dtype)
-    return jnp.where(pos & (s1 > 0) & (s2 > 0) & (s3 > 0), val, big)
-
-
-def _newton_hyper(s0, warm, mu, lam, k, iters, model):
-    """Lane-parallel damped Newton on 3 singular values; model: 'nh'|'stvk'."""
-    c1, c2, c3 = s0  # prox centers (signed SVD values)
-    x1, x2, x3 = warm
-    value_fn = _nh_value if model == "nh" else _stvk_value
-
-    floor = SIGMA_FLOOR
-    x1 = jnp.maximum(x1, floor)
-    x2 = jnp.maximum(x2, floor)
-    x3 = jnp.maximum(x3, floor)
-
-    for _ in range(iters):
-        if model == "nh":
-            inv1, inv2, inv3 = 1.0 / x1, 1.0 / x2, 1.0 / x3
-            logdet = jnp.log(x1 * x2 * x3)
-            g1 = mu * (x1 - inv1) + lam * logdet * inv1 + k * (x1 - c1)
-            g2 = mu * (x2 - inv2) + lam * logdet * inv2 + k * (x2 - c2)
-            g3 = mu * (x3 - inv3) + lam * logdet * inv3 + k * (x3 - c3)
-            # diag of lam*outer(inv,inv) contributes +lam*inv_i^2, matching
-            # the validated closed form models/tet.py:nh_grad_hess.
-            h11 = mu * (1.0 + inv1 * inv1) + (lam - lam * logdet) * inv1 * inv1 + k
-            h22 = mu * (1.0 + inv2 * inv2) + (lam - lam * logdet) * inv2 * inv2 + k
-            h33 = mu * (1.0 + inv3 * inv3) + (lam - lam * logdet) * inv3 * inv3 + k
-            h12 = lam * inv1 * inv2
-            h13 = lam * inv1 * inv3
-            h23 = lam * inv2 * inv3
-        else:  # stvk (closed forms match models/tet.py stvk_grad_hess)
-            ss = x1 * x1 + x2 * x2 + x3 * x3
-            g1 = mu * x1 * (x1 * x1 - 1.0) + 0.5 * lam * (ss - 3.0) * x1 + k * (x1 - c1)
-            g2 = mu * x2 * (x2 * x2 - 1.0) + 0.5 * lam * (ss - 3.0) * x2 + k * (x2 - c2)
-            g3 = mu * x3 * (x3 * x3 - 1.0) + 0.5 * lam * (ss - 3.0) * x3 + k * (x3 - c3)
-            base = 0.5 * lam * (ss - 3.0) + k
-            h11 = mu * (3.0 * x1 * x1 - 1.0) + base + lam * x1 * x1
-            h22 = mu * (3.0 * x2 * x2 - 1.0) + base + lam * x2 * x2
-            h33 = mu * (3.0 * x3 * x3 - 1.0) + base + lam * x3 * x3
-            h12 = lam * x1 * x2
-            h13 = lam * x1 * x3
-            h23 = lam * x2 * x3
-        hmax = jnp.maximum(
-            jnp.maximum(jnp.abs(h11), jnp.abs(h22)),
-            jnp.maximum(jnp.abs(h33), jnp.maximum(jnp.abs(h12), jnp.maximum(jnp.abs(h13), jnp.abs(h23)))),
-        )
-        damp = 1e-6 * (hmax + 1.0)
-        h11 = h11 + damp
-        h22 = h22 + damp
-        h33 = h33 + damp
-        # symmetric 3x3 solve via adjugate
-        cof11 = h22 * h33 - h23 * h23
-        cof12 = h13 * h23 - h12 * h33
-        cof13 = h12 * h23 - h13 * h22
-        det = h11 * cof11 + h12 * cof12 + h13 * cof13
-        det = jnp.where(jnp.abs(det) > 1e-30, det, 1.0)
-        cof22 = h11 * h33 - h13 * h13
-        cof23 = h12 * h13 - h11 * h23
-        cof33 = h11 * h22 - h12 * h12
-        d1 = -(cof11 * g1 + cof12 * g2 + cof13 * g3) / det
-        d2 = -(cof12 * g1 + cof22 * g2 + cof23 * g3) / det
-        d3 = -(cof13 * g1 + cof23 * g2 + cof33 * g3) / det
-        # steepest-descent fallback if not a descent direction
-        descent = d1 * g1 + d2 * g2 + d3 * g3 < 0.0
-        gscale = 1.0 / (hmax + 1.0)
-        d1 = jnp.where(descent, d1, -g1 * gscale)
-        d2 = jnp.where(descent, d2, -g2 * gscale)
-        d3 = jnp.where(descent, d3, -g3 * gscale)
-
-        f_best = value_fn(x1, x2, x3, mu, lam, k, c1, c2, c3)
-        b1, b2, b3 = x1, x2, x3
-
-        def try_step(s1, s2, s3, f_best, b1, b2, b3):
-            t1 = jnp.maximum(s1, floor)
-            t2 = jnp.maximum(s2, floor)
-            t3 = jnp.maximum(s3, floor)
-            fv = value_fn(t1, t2, t3, mu, lam, k, c1, c2, c3)
-            better = fv < f_best
-            return (
-                jnp.where(better, fv, f_best),
-                jnp.where(better, t1, b1),
-                jnp.where(better, t2, b2),
-                jnp.where(better, t3, b3),
-            )
-
-        for a in _ALPHAS:
-            f_best, b1, b2, b3 = try_step(
-                x1 + a * d1, x2 + a * d2, x3 + a * d3, f_best, b1, b2, b3
-            )
-        for a in _GRAD_ALPHAS:
-            f_best, b1, b2, b3 = try_step(
-                x1 - a * g1 * gscale, x2 - a * g2 * gscale,
-                x3 - a * g3 * gscale, f_best, b1, b2, b3,
-            )
-        x1, x2, x3 = b1, b2, b3
-    return x1, x2, x3
-
-
-def _make_hyper_kernel(iters, model):
-    def kernel(dx_ref, u_ref, warm_ref, mu_ref, lam_ref, k_ref,
-               z_ref, unew_ref, warm_out_ref):
-        dx = [dx_ref[p, :] for p in range(9)]
-        uu = [u_ref[p, :] for p in range(9)]
+        if fused:
+            (xg_ref, u_ref, w_ref, cp_ref, mu_ref, lam_ref, k_ref, w2_ref,
+             z_ref, un_ref, wo_ref, c_ref, *cz_ref) = refs
+            xg = [[ld(xg_ref, kk, a) for a in range(3)] for kk in range(4)]
+            cp = [[ld(cp_ref, b, kk) for kk in range(4)] for b in range(3)]
+            dx = []
+            for a in range(3):
+                for b in range(3):
+                    acc = cp[b][0] * xg[0][a]
+                    for kk in range(1, 4):
+                        acc = acc + cp[b][kk] * xg[kk][a]
+                    dx.append(acc)
+        else:
+            (dx_ref, u_ref, w_ref, mu_ref, lam_ref, k_ref,
+             z_ref, un_ref, wo_ref) = refs
+            dx = [ld(dx_ref, b, a) for a in range(3) for b in range(3)]
+        uu = [ld(u_ref, b, a) for a in range(3) for b in range(3)]
         f = [dx[p] + uu[p] for p in range(9)]
-        eps = jnp.asarray(jnp.finfo(dx[0].dtype).eps, dx[0].dtype)
-        U, V, s = _svd_columns(f, eps)
+        warm = [ld(w_ref, c, other=1.0) for c in range(3)]
+        mats = [ld(r, other=1.0) for r in (mu_ref, lam_ref, k_ref)]
 
-        # warm-start guards (TetForce.cpp:339-347): flip negative third
-        # component, ELSE (third was non-negative) bump a collapsed start
-        w1 = warm_ref[0, :]
-        w2_ = warm_ref[1, :]
-        neg3 = warm_ref[2, :] < 0.0
-        w3 = jnp.abs(warm_ref[2, :])
-        collapsed = (~neg3) & (
-            (jnp.abs(w1) < 1e-3) & (jnp.abs(w2_) < 1e-3) & (jnp.abs(w3) < 1e-3)
-        )
-        w1 = jnp.where(collapsed, 1e-3, w1)
-        w2_ = jnp.where(collapsed, 1e-3, w2_)
-        w3 = jnp.where(collapsed, 1e-3, w3)
-
-        mu = mu_ref[0, :]
-        lam = lam_ref[0, :]
-        k = k_ref[0, :]
-        x1, x2, x3 = _newton_hyper(s, (w1, w2_, w3), mu, lam, k, iters, model)
-        warm_out_ref[0, :] = x1
-        warm_out_ref[1, :] = x2
-        warm_out_ref[2, :] = x3
-
-        # z = U diag(sigma*) V^T, plane 3r+c
-        sig = (x1, x2, x3)
-        for r in range(3):
-            for c in range(3):
-                z = (
-                    U[0][r] * sig[0] * V[0][c]
-                    + U[1][r] * sig[1] * V[1][c]
-                    + U[2][r] * sig[2] * V[2][c]
-                )
-                z_ref[3 * r + c, :] = z
-                unew_ref[3 * r + c, :] = uu[3 * r + c] + dx[3 * r + c] - z
-
-    return kernel
-
-
-def _make_hyper_fused_kernel(iters, model, emit_z=False):
-    """Like _make_hyper_kernel but additionally computes Dx in-kernel from
-    gathered vertex planes and emits the global-step RHS contribution planes,
-    fusing the whole per-iteration element pipeline (selector apply -> SVD ->
-    Newton prox -> reconstruct -> dual update -> D^T W^2 (z-u) contribution)
-    into one VMEM pass. Plane conventions:
-      xg[3k+a, e]   = x[tet[e,k], a]          (gathered positions)
-      cp[4b+k, e]   = coeff[e,b,k] = B[e,k,b] (selector coefficients)
-      dx[3a+b, e]   = F_{a,b} = sum_k cp[4b+k] * xg[3k+a]
-      contrib[3k+j] = w2 * sum_r cp[4r+k] * (z - u')[3j+r]
-    With emit_z, a second contribution block w2 * D^T z is emitted for the
-    dual residual (s_i = dt^2 (T z_i - T z_{i-1})).
-    """
-
-    def kernel(xg_ref, u_ref, warm_ref, cp_ref, mu_ref, lam_ref, k_ref,
-               w2_ref, z_ref, unew_ref, warm_out_ref, contrib_ref,
-               *maybe_cz):
-        xg = [xg_ref[p, :] for p in range(12)]
-        cp = [cp_ref[p, :] for p in range(12)]
-        dx = []
+        z, sig = hyper_prox(f, warm, *mats, iters, model)
+        for c in range(3):
+            st(wo_ref, sig[c], c)
+        zu = [None] * 9
         for a in range(3):
             for b in range(3):
-                acc = cp[4 * b] * xg[a]
-                for kk in range(1, 4):
-                    acc = acc + cp[4 * b + kk] * xg[3 * kk + a]
-                dx.append(acc)
-        uu = [u_ref[p, :] for p in range(9)]
-        f = [dx[p] + uu[p] for p in range(9)]
-        eps = jnp.asarray(jnp.finfo(dx[0].dtype).eps, dx[0].dtype)
-        U, V, s = _svd_columns(f, eps)
+                p = 3 * a + b
+                un = uu[p] + dx[p] - z[p]
+                st(z_ref, z[p], b, a)
+                st(un_ref, un, b, a)
+                zu[p] = z[p] - un
 
-        w1 = warm_ref[0, :]
-        w2_ = warm_ref[1, :]
-        neg3 = warm_ref[2, :] < 0.0
-        w3 = jnp.abs(warm_ref[2, :])
-        collapsed = (~neg3) & (
-            (jnp.abs(w1) < 1e-3) & (jnp.abs(w2_) < 1e-3) & (jnp.abs(w3) < 1e-3)
-        )
-        w1 = jnp.where(collapsed, 1e-3, w1)
-        w2_ = jnp.where(collapsed, 1e-3, w2_)
-        w3 = jnp.where(collapsed, 1e-3, w3)
-
-        mu = mu_ref[0, :]
-        lam = lam_ref[0, :]
-        k = k_ref[0, :]
-        x1, x2, x3 = _newton_hyper(s, (w1, w2_, w3), mu, lam, k, iters, model)
-        warm_out_ref[0, :] = x1
-        warm_out_ref[1, :] = x2
-        warm_out_ref[2, :] = x3
-
-        sig = (x1, x2, x3)
-        zu = [None] * 9
-        zs = [None] * 9
-        for r in range(3):
-            for c in range(3):
-                z = (
-                    U[0][r] * sig[0] * V[0][c]
-                    + U[1][r] * sig[1] * V[1][c]
-                    + U[2][r] * sig[2] * V[2][c]
-                )
-                un = uu[3 * r + c] + dx[3 * r + c] - z
-                z_ref[3 * r + c, :] = z
-                unew_ref[3 * r + c, :] = un
-                zu[3 * r + c] = z - un
-                zs[3 * r + c] = z
-
-        w2e = w2_ref[0, :]
-        for kk in range(4):
-            for j in range(3):
-                acc = cp[kk] * zu[3 * j]
-                for r in range(1, 3):
-                    acc = acc + cp[4 * r + kk] * zu[3 * j + r]
-                contrib_ref[3 * kk + j, :] = w2e * acc
-                if emit_z:
-                    accz = cp[kk] * zs[3 * j]
-                    for r in range(1, 3):
-                        accz = accz + cp[4 * r + kk] * zs[3 * j + r]
-                    maybe_cz[0][3 * kk + j, :] = w2e * accz
+        if fused:
+            w2 = ld(w2_ref)
+            blocks = [(c_ref, zu)] + ([(cz_ref[0], z)] if emit_z else [])
+            for out_ref, y in blocks:
+                # rows w^2 sum_r coeff[r, k] y[r, j]; y plane 3j+r
+                for kk in range(4):
+                    for j in range(3):
+                        acc = cp[0][kk] * y[3 * j]
+                        for r in range(1, 3):
+                            acc = acc + cp[r][kk] * y[3 * j + r]
+                        st(out_ref, w2 * acc, kk, j)
 
     return kernel
+
+
+def _call(kernel, E, out_shape, args, interpret, name):
+    return pl.pallas_call(
+        kernel,
+        grid=(pl.cdiv(E, BLOCK),),
+        out_shape=out_shape,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name=name,
+    )(*args)
+
+
+@functools.partial(jax.jit, static_argnames=("iters", "model", "interpret"))
+def nh_local_step(Dx, u, sigma, mu, lam, k, iters=5, model="nh",
+                  interpret=False):
+    """Local step + dual update. Dx/u: (E,3,3); sigma: (E,3) warm start;
+    mu/lam/k: (E,). Returns (z, u_new, sigma_new)."""
+    E = Dx.shape[0]
+    out_shape = [
+        jax.ShapeDtypeStruct(Dx.shape, Dx.dtype),
+        jax.ShapeDtypeStruct(Dx.shape, Dx.dtype),
+        jax.ShapeDtypeStruct(sigma.shape, sigma.dtype),
+    ]
+    return tuple(_call(
+        _make_kernel(E, iters, model, False, False), E, out_shape,
+        (Dx, u, sigma, mu, lam, k), interpret, "nh_local_step",
+    ))
 
 
 @functools.partial(
-    jax.jit, static_argnames=("iters", "interpret", "model", "emit_z")
-)
-def nh_local_step_fused(xg12, u9, warm, cp12, mu, lam, k, w2, iters=5,
-                        interpret=None, model="nh", emit_z=False):
-    """Fully fused local step + RHS contribution. xg12/cp12/contrib: (12,E);
-    u9: (9,E); warm: (3,E); mu/lam/k/w2: (E,). E must be a multiple of BLOCK.
-    Returns (z9, u9_new, warm_new, contrib12) or, with emit_z,
-    (z9, u9_new, warm_new, contrib12, contribz12)."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    E = xg12.shape[1]
-    grid = (E // BLOCK,)
-    p12 = pl.BlockSpec((12, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    p9 = pl.BlockSpec((9, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    p3 = pl.BlockSpec((3, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    p1 = pl.BlockSpec((1, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    out_specs = [p9, p9, p3, p12]
+    jax.jit, static_argnames=("iters", "model", "emit_z", "interpret"))
+def nh_local_step_fused(xg, u, sigma, coeff, mu, lam, k, w2, iters=5,
+                        model="nh", emit_z=False, interpret=False):
+    """Selector apply + local step + dual update + RHS rows.
+    xg: (E,4,3) gathered vertices; u: (E,3,3); sigma: (E,3);
+    coeff: (E,3,4); mu/lam/k/w2: (E,). Returns (z, u_new, sigma_new,
+    contrib (E,4,3)[, contrib_z (E,4,3)])."""
+    E = xg.shape[0]
+    rows = jax.ShapeDtypeStruct((E, 4, 3), xg.dtype)
     out_shape = [
-        jax.ShapeDtypeStruct(u9.shape, u9.dtype),
-        jax.ShapeDtypeStruct(u9.shape, u9.dtype),
-        jax.ShapeDtypeStruct(warm.shape, warm.dtype),
-        jax.ShapeDtypeStruct(xg12.shape, xg12.dtype),
-    ]
-    if emit_z:
-        out_specs.append(p12)
-        out_shape.append(jax.ShapeDtypeStruct(xg12.shape, xg12.dtype))
-    out = pl.pallas_call(
-        _make_hyper_fused_kernel(iters, model, emit_z),
-        grid=grid,
-        in_specs=[p12, p9, p3, p12, p1, p1, p1, p1],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(xg12, u9, warm, cp12, mu.reshape(1, E), lam.reshape(1, E),
-      k.reshape(1, E), w2.reshape(1, E))
-    return tuple(out)
-
-
-@functools.partial(jax.jit, static_argnames=("iters", "interpret", "model"))
-def nh_local_step(dx9, u9, warm, mu, lam, k, iters=5, interpret=None,
-                  model="nh"):
-    """Fused NH local step. dx9/u9: (9,E); warm: (3,E); mu/lam/k: (E,).
-    Returns (z9, u9_new, warm_new). E must be a multiple of BLOCK."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    E = dx9.shape[1]
-    grid = (E // BLOCK,)
-    p9 = pl.BlockSpec((9, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    p3 = pl.BlockSpec((3, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    p1 = pl.BlockSpec((1, BLOCK), lambda i: (0, i), memory_space=pltpu.VMEM)
-    z9, unew, warm_new = pl.pallas_call(
-        _make_hyper_kernel(iters, model),
-        grid=grid,
-        in_specs=[p9, p9, p3, p1, p1, p1],
-        out_specs=[p9, p9, p3],
-        out_shape=[
-            jax.ShapeDtypeStruct(dx9.shape, dx9.dtype),
-            jax.ShapeDtypeStruct(dx9.shape, dx9.dtype),
-            jax.ShapeDtypeStruct(warm.shape, warm.dtype),
-        ],
-        interpret=interpret,
-    )(dx9, u9, warm, mu.reshape(1, E), lam.reshape(1, E), k.reshape(1, E))
-    return z9, unew, warm_new
+        jax.ShapeDtypeStruct(u.shape, u.dtype),
+        jax.ShapeDtypeStruct(u.shape, u.dtype),
+        jax.ShapeDtypeStruct(sigma.shape, sigma.dtype),
+        rows,
+    ] + ([rows] if emit_z else [])
+    return tuple(_call(
+        _make_kernel(E, iters, model, True, emit_z), E, out_shape,
+        (xg, u, sigma, coeff, mu, lam, k, w2), interpret,
+        "nh_local_step_fused",
+    ))

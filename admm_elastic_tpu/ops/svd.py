@@ -1,7 +1,7 @@
-"""Branch-free batched small SVDs for TPU.
+"""Branch-free batched small SVDs.
 
 The reference computes per-element 3x3 / 3x2 SVDs with Eigen's JacobiSVD
-(TetForce.cpp:80-102, TriangleForce.cpp:90) inside an OpenMP loop. On TPU we
+(TetForce.cpp:80-102, TriangleForce.cpp:90) inside an OpenMP loop. Here we
 need a fixed-iteration, branch-free formulation that vmaps over millions of
 elements: cyclic-Jacobi eigendecomposition of F^T F followed by a safe
 orthonormalization of F V.

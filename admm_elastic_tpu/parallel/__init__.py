@@ -28,7 +28,7 @@ __all__ = [
     # lazily importable (pull in jax.shard_map machinery):
     #   .spmd.SpmdSystem            replicated-vertex element sharding
     #   .halo_spmd.HaloSpmdSystem   boundary-halo O(cut) sharding
-    #   .banded_spmd.ShardedBandedStepper  sharded banded whole-timestep kernel
-    #   .cloth_spmd.ShardedClothStepper    sharded cloth whole-timestep kernel
+    #   .banded_spmd.ShardedBandedStepper  sharded banded whole-mesh layout
+    #   .cloth_spmd.ShardedClothStepper    sharded cloth whole-mesh layout
     #   .comm                        measured-HLO collective accounting
 ]

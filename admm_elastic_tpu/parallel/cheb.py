@@ -1,22 +1,17 @@
 """Dot-product-free Chebyshev global solve for the sharded steppers.
 
-Why: the sharded whole-timestep steppers run their global Jacobi-PCG at
-the JAX level — each CG iteration needs TWO globally-reduced scalars
-(alpha, beta), which (a) costs ~31 us/iteration of tiny-op dispatch on
-chip at D=1 (measured round 5: cg75 adds 15.4 ms/step over cg25 at 100k
-tets) and (b) puts two latency-bound psums on the critical path of every
-iteration on a real mesh. Chebyshev semi-iteration replaces CG with a
-fixed 3-term recurrence whose coefficients depend only on eigenvalue
-bounds of the preconditioned operator — NO inner products, NO psums:
-the entire k-iteration solve is element-wise + matvec work, so it fuses
-into one pallas launch (ops/pallas/banded_step.py embeds the same
-recurrence in-kernel) and its only cross-device traffic is the halo
-refresh of the direction vector.
+Why: the sharded whole-timestep steppers run a global Jacobi-PCG whose
+every iteration needs TWO globally-reduced scalars (alpha, beta), which
+puts two latency-bound psums on the critical path of every iteration on
+a device mesh. Chebyshev semi-iteration replaces CG with a fixed 3-term
+recurrence whose coefficients depend only on eigenvalue bounds of the
+preconditioned operator — NO inner products, NO psums: the entire
+k-iteration solve is element-wise + matvec work, and its only
+cross-device traffic is the halo refresh of the direction vector.
 
 The reference's global step is a prefactored direct solve
-(/root/reference/deps/admm-elastic-sca/src/system/System.cpp:62,140);
-this is the TPU-native distributed replacement for it, chosen over CG
-specifically for the collective-latency profile of a device mesh
+(System.cpp:62,140); this is a distributed replacement for it, chosen
+over CG specifically for the collective-latency profile of a device mesh
 (SURVEY §2.7: CG dots were "the only cross-device scalars" — Chebyshev
 deletes them).
 
@@ -50,7 +45,7 @@ import numpy as np
 
 def _flat_shift(x: np.ndarray, off: int) -> np.ndarray:
     """out[i] = x[i+off], zero fill — the host twin of
-    ops/pallas/banded_step._shifted on a flattened plane."""
+    core/banded.shifted on a flattened plane."""
     out = np.zeros_like(x)
     if off == 0:
         out[:] = x

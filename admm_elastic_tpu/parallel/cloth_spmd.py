@@ -1,13 +1,8 @@
-"""Element-sharded cloth fast path: the whole-timestep cloth kernel's
-algorithm distributed over a device mesh with boundary-halo exchange.
+"""Grid-cloth whole-timestep ADMM as one XLA program, element-sharded over
+a device mesh with boundary-halo exchange (one device is the mesh of one).
 
-The single-device cloth kernel (ops/pallas/cloth_step.py) fuses every
-phase of every ADMM iteration (wind/gravity kicks, per-group triangle/
-bend prox steps via constant-offset shifts, dual updates, RHS reverse
-shifts, anchors, the whole Jacobi-PCG dia solve) into one pallas_call —
-optimal on one chip, unshardable (in-kernel CG scalars). This module
-splits the SAME algorithm at the slab boundary of its flat-lane index
-space:
+The grid-cloth layout (core/cloth.py) is split at the slab boundary of its
+flat-lane index space:
 
   * the flat vertex index space [0, N) — which IS mesh-local under the
     interleaved-column cloth numbering — is cut into contiguous slabs
@@ -17,19 +12,17 @@ space:
     reach only UP, at most max-offset lanes into the next slab);
   * per ADMM iteration each device evaluates its groups on its slab
     with a +/-Hf-lane halo of x (one neighbor `ppermute` pair), using
-    the SAME math bodies as the kernel (`_tri_body` is imported; the
-    bend/wind/anchor bodies are the kernel's formulas verbatim), then
-    one reverse exchange returns top-halo RHS partials to their owner;
+    the lane-parallel triangle projection of ops/lanes.py and the bend,
+    wind and anchor formulas below, then one reverse exchange returns
+    top-halo RHS partials to their owner;
   * the Jacobi-PCG dia solve runs at the JAX level: the symmetric-dia
     matvec is row-local given the halo, the two CG scalars are psums.
 
 Per-device traffic per CG iteration is O(halo) = O(grid row length),
 independent of N — the same boundary-halo design as the sharded banded
-tet kernel (parallel/banded_spmd.py; SURVEY §2.7). The in-kernel 2D
-multigrid stays single-device (use the sharded path with a deeper
-cg budget for matched solves, or the single-chip kernel).
+tet layout (parallel/banded_spmd.py; SURVEY §2.7).
 
-Trajectory parity vs the single-device whole-timestep cloth kernel:
+Trajectory parity vs the general System path and across device counts:
 tests/test_cloth_spmd.py.
 """
 
@@ -41,7 +34,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..ops.pallas.tri_local import _tri_body
+from ..ops.lanes import tri_body
+from ..utils.precision import highest
 
 
 def _roundup(x, m):
@@ -58,9 +52,9 @@ class ShardedClothStepper:
     """
 
     model_name = "cloth_spmd"
-    #: steps fused into one lax.scan program by run() — amortizes the
-    #: per-dispatch relay/launch overhead like the mega kernel's
-    #: rollout grid (docs/PERFORMANCE.md)
+    model = "cloth"
+    #: steps fused into one lax.scan program by run() (one dispatch per
+    #: window instead of one per step)
     ROLLOUT_WINDOW = 10
 
     def __init__(self, base, mesh, axis: str = "elem",
@@ -69,12 +63,6 @@ class ShardedClothStepper:
         if solver not in ("cg", "cheb", "mg"):
             raise ValueError(
                 f"solver must be 'cg', 'cheb' or 'mg', got {solver}")
-        if solver != "mg" and base._mg_meta_static is not None:
-            raise ValueError(
-                "sharded cloth path: the IN-KERNEL multigrid does not "
-                "shard; use solver='mg' (sharded V-cycles, VERDICT r4 "
-                "#2) or a deeper cg_iters budget"
-            )
         if solver == "mg" and system is None:
             raise ValueError(
                 "solver='mg' needs the originating System (pass system= "
@@ -191,6 +179,9 @@ class ShardedClothStepper:
             "t": jnp.asarray(np.asarray(st["t"]), dtype),
         }
         shd = NamedSharding(self.mesh, P(self.axis))
+        self._slab_own = lambda planes: jax.device_put(  # noqa: E731
+            jnp.asarray(slab(np.asarray(planes, np.float64), halo=False),
+                        dtype), shd)
         self.state = {
             # "t" rides replicated: leaving it UN-placed makes the
             # post-step sharding differ from the input's and forces a
@@ -231,9 +222,8 @@ class ShardedClothStepper:
                             jnp.asarray(c1, dtype), jnp.asarray(c2, dtype))
 
     def _mg_host_build(self):
-        """Host phase of the sharded 2D multigrid (VERDICT r4 #2): the
-        core/mg.py package on the cloth's flat-lane layout (same ladder
-        search as the in-kernel build, core/cloth.py), plus the
+        """Host phase of the sharded 2D multigrid: the core/mg.py package
+        on the cloth's flat-lane layout (ladders from core/cloth.py), plus the
         Chebyshev schedule for the dot-free outer from a one-time power
         iteration on I - B A (plain Richardson stalls on the V-cycle's
         tail mode — see parallel/banded_spmd._mg_host_build)."""
@@ -405,6 +395,18 @@ class ShardedClothStepper:
     def v(self):
         return self._gather(self.state["v"])
 
+    def set_positions(self, value):
+        """Overwrite positions ((n, 3), layout numbering)."""
+        x = np.zeros((3, self.base.N))
+        x[:, :self.base.n_nodes] = np.asarray(value, np.float64).T
+        self.state["x"] = self._slab_own(x)
+
+    def set_velocities(self, value):
+        """Overwrite velocities ((n, 3), layout numbering)."""
+        v = np.zeros((3, self.base.N))
+        v[:, :self.base.n_nodes] = np.asarray(value, np.float64).T
+        self.state["v"] = self._slab_own(v)
+
     def _gather(self, planes):
         a = np.asarray(planes)                      # (D, 3, nbf)
         flat = a.transpose(1, 0, 2).reshape(3, self.D * self.nbf)
@@ -412,8 +414,8 @@ class ShardedClothStepper:
 
     def detach(self):
         """Write the slab state back into the single-device ClothStepper
-        (bitwise relayout) so its kernel stepping / checkpointing
-        continue exactly from here. Returns the base stepper."""
+        (bitwise relayout) so a stepper on another mesh can continue
+        exactly from here. Returns the base stepper."""
         base = self.base
         N, nbf = base.N, self.nbf
 
@@ -723,9 +725,9 @@ class ShardedClothStepper:
                                     f[2 * a + bb] = f[2 * a + bb] + (
                                         w * xbuf[a, Hf + o:Hf + o + nbf]
                                     )
-                        z = _tri_body(f, w2, k, lmin, lmax, lim)
-                        # dual update gated by validity (phantom-base
-                        # divergence — see ops/pallas/cloth_step.py)
+                        z = tri_body(f, w2, k, lmin, lmax, lim)
+                        # dual update gated by validity: pad/phantom
+                        # bases must not accumulate duals
                         m01 = masks[mrow]
                         un = [m01 * (f[p] - z[p]) for p in range(6)]
                         if collect:
@@ -931,7 +933,8 @@ class ShardedClothStepper:
 
     def step(self):
         if self._stepf is None:
-            self._stepf = jax.jit(self._make_step(), donate_argnums=(1,))
+            self._stepf = jax.jit(highest(self._make_step()),
+                                  donate_argnums=(1,))
         self.state, rp, rd = self._stepf(self._params, self.state)
         if self.collect_residuals:
             self.last_primal = rp
@@ -941,9 +944,8 @@ class ShardedClothStepper:
 
     def run(self, n_steps: int):
         """Step n times; full ROLLOUT_WINDOW chunks run as ONE jitted
-        lax.scan program each (one dispatch per W steps — the same
-        amortization the single-device kernel gets from its rollout
-        grid). Residual-collecting runs keep per-step dispatch (their
+        lax.scan program each (one dispatch per W steps).
+        Residual-collecting runs keep per-step dispatch (their
         last_primal/last_dual contract is per-step)."""
         W = self.ROLLOUT_WINDOW
         while not self.collect_residuals and n_steps >= W:
@@ -958,7 +960,7 @@ class ShardedClothStepper:
                     out, _ = jax.lax.scan(body, state, None, length=W)
                     return out
 
-                self._runf[W] = jax.jit(runW, donate_argnums=(1,))
+                self._runf[W] = jax.jit(highest(runW), donate_argnums=(1,))
             self.state = self._runf[W](self._params, self.state)
             n_steps -= W
         for _ in range(n_steps):
@@ -982,7 +984,7 @@ class ShardedClothStepper:
         from ..core.cloth import cloth_from_system
 
         out = cloth_from_system(sysm)
-        assert out is not None, "scene no longer qualifies for the kernel"
+        assert out is not None, "scene no longer qualifies for the layout"
         new_base, _ = out
         old = self.base
         assert new_base.N == old.N and new_base.n_groups == old.n_groups
@@ -1039,7 +1041,8 @@ class ShardedClothStepper:
         from .comm import compiled_hlo_text, hlo_collective_report
 
         if self._stepf is None:
-            self._stepf = jax.jit(self._make_step(), donate_argnums=(1,))
+            self._stepf = jax.jit(highest(self._make_step()),
+                                  donate_argnums=(1,))
         rep = hlo_collective_report(
             compiled_hlo_text(self._stepf, self._params, self.state)
         )
@@ -1052,19 +1055,15 @@ def sharded_cloth_from_system(system, mesh, axis: str = "elem",
                               solver: str = "cg", mg_cycles: int = 10,
                               cheb_iters: int | None = None):
     """Build a ShardedClothStepper from an initialized System whose
-    scene routed onto the cloth whole-timestep kernel. Returns
-    (stepper, to_canonical) or None. Records the System, enabling
-    refresh_params (runtime force edits) and solver='mg'."""
-    from ..core.cloth import ClothStepper, cloth_from_system
+    scene qualifies for the grid-cloth layout. Returns (stepper,
+    to_canonical) or None. Records the System, enabling refresh_params
+    (runtime force edits) and solver='mg'."""
+    from ..core.cloth import cloth_from_system
 
-    lat = getattr(system, "_lattice", None)
-    if isinstance(lat, ClothStepper):
-        base, cid = lat, system._to_canon
-    else:
-        out = cloth_from_system(system)
-        if out is None:
-            return None
-        base, cid = out
+    out = cloth_from_system(system)
+    if out is None:
+        return None
+    base, cid = out
     try:
         spmd = ShardedClothStepper(base, mesh, axis=axis, solver=solver,
                                    mg_cycles=mg_cycles, system=system,

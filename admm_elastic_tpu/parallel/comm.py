@@ -18,8 +18,8 @@ in the compiled step is O(halo/cut) or scalar, never O(n).
 
 There is no distributed runtime in the reference to mirror (its OpenMP
 backend shares memory; SURVEY §2.7 derives the halo design from its
-D/D^T reduction structure, /root/reference/deps/admm-elastic-sca/src/
-system/System.cpp:54-62); this is the TPU-native accounting for it.
+D/D^T reduction structure, System.cpp:54-62); this is the accounting
+for it.
 """
 
 from __future__ import annotations

@@ -46,6 +46,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.solver import assemble_A_hat_ell, assemble_transpose_incidence
+from ..utils.precision import highest
 from .spmd import _round_up
 
 
@@ -87,8 +88,6 @@ class HaloSpmdSystem:
     # ------------------------------------------------------------- build
 
     def _build(self):
-        from ..ops.pallas.tet_local import BLOCK
-
         sysm = self.system
         S = self.S
         dtype = sysm.settings.dtype
@@ -269,20 +268,16 @@ class HaloSpmdSystem:
         for f in forces:
             p = {k: np.asarray(v) for k, v in sysm.params[f.name].items()}
             E = f.n_elements
-            is_pallas = getattr(f, "backend", "xla") == "pallas"
-            unit = BLOCK if is_pallas else 8
             per_dev = own_elems[f.name]
-            El = _round_up(max(1, max(len(ix) for ix in per_dev)), unit)
+            El = _round_up(max(1, max(len(ix) for ix in per_dev)), 8)
 
             u_g = np.asarray(sysm.state["u"][f.name])
             st_g = {k: np.asarray(v)
                     for k, v in sysm.state["forces"][f.name].items()}
 
-            loc_p = {k: [] for k in p if k != "coeff_p"}
+            loc_p = {k: [] for k in p}
             loc_u = []
             loc_st = {k: [] for k in st_g}
-            if is_pallas:
-                u_g = u_g[:, :E]  # (9, E) planes: drop global padding
             for d in range(S):
                 ix = per_dev[d]
                 # pad source rows: replicate the device's last element
@@ -293,8 +288,6 @@ class HaloSpmdSystem:
                     [ix, np.full(El - len(ix), fill, np.int64)]
                 )
                 for k, v in p.items():
-                    if k == "coeff_p":
-                        continue
                     if v.ndim >= 1 and v.shape[0] == E:
                         loc_p[k].append(v[src])
                     else:
@@ -306,28 +299,15 @@ class HaloSpmdSystem:
                 loc_p["indices"][-1] = to_local(
                     cparams[f.name]["indices"][src], d
                 ).astype(np.int32)
-                if is_pallas:
-                    u_d = np.zeros((u_g.shape[0], El), u_g.dtype)
-                    u_d[:, :len(ix)] = u_g[:, ix]
-                    loc_u.append(u_d)
-                else:
-                    u_d = np.zeros((El,) + u_g.shape[1:], u_g.dtype)
-                    u_d[:len(ix)] = u_g[ix]
-                    loc_u.append(u_d)
+                u_d = np.zeros((El,) + u_g.shape[1:], u_g.dtype)
+                u_d[:len(ix)] = u_g[ix]
+                loc_u.append(u_d)
                 for k, v in st_g.items():
-                    if k == "sigma" and is_pallas:
-                        sg = np.ones((v.shape[0], El), v.dtype)
-                        sg[:, :len(ix)] = v[:, ix]
-                        loc_st[k].append(sg)
-                    elif v.ndim >= 1 and v.shape[0] == E:
+                    if v.ndim >= 1 and v.shape[0] == E:
                         loc_st[k].append(v[src])
                     else:
                         loc_st[k].append(v)
             stacked = {k: np.stack(vs, 0) for k, vs in loc_p.items()}
-            if is_pallas:
-                cps = [f._coeff_planes({"coeff": stacked["coeff"][s]})
-                       for s in range(S)]
-                stacked["coeff_p"] = np.stack(cps, 0)
             shd_params[f.name] = stacked
             shd_u[f.name] = np.stack(loc_u, 0)
             shd_state[f.name] = {k: np.stack(vs, 0)
@@ -440,7 +420,8 @@ class HaloSpmdSystem:
             "t": jax.device_put(state["t"], rep_shd),
         }
         self._core_fn = self._make_step()
-        self._step_fn = jax.jit(self._core_fn, donate_argnums=(0, 1))
+        self._step_fn = jax.jit(highest(self._core_fn),
+                                donate_argnums=(0, 1))
         self._run_fn = {}
         self.last_aux = {}
 
@@ -694,9 +675,8 @@ class HaloSpmdSystem:
         )
         return True
 
-    #: steps fused into one lax.scan program by run() — amortizes the
-    #: per-dispatch overhead like the whole-timestep kernels' rollout
-    #: windows (docs/PERFORMANCE.md)
+    #: steps fused into one lax.scan program by run() (one dispatch per
+    #: window instead of one per step)
     ROLLOUT_WINDOW = 10
 
     def run(self, n_steps: int):
@@ -718,7 +698,8 @@ class HaloSpmdSystem:
                         body, (state, shd), None, length=W)
                     return st, sh
 
-                self._run_fn[W] = jax.jit(runW, donate_argnums=(0, 1))
+                self._run_fn[W] = jax.jit(highest(runW),
+                                          donate_argnums=(0, 1))
             self.state, self.shd = self._run_fn[W](self.state, self.shd)
             n_steps -= W
         for _ in range(n_steps):
@@ -771,7 +752,6 @@ class HaloSpmdSystem:
         u_all = {}
         f_all = {}
         for f in self._force_list:
-            is_pallas = getattr(f, "backend", "xla") == "pallas"
             per_dev = self._own_elems[f.name]
             u_shd = np.asarray(self.shd["u"][f.name])
             u_g = np.array(np.asarray(sysm.state["u"][f.name]))
@@ -782,16 +762,11 @@ class HaloSpmdSystem:
             for d, ix in enumerate(per_dev):
                 if not len(ix):
                     continue
-                if is_pallas:
-                    u_g[:, ix] = u_shd[d][:, :len(ix)]
-                else:
-                    u_g[ix] = u_shd[d][:len(ix)]
+                u_g[ix] = u_shd[d][:len(ix)]
                 if not sync_fstate:
                     continue
                 for k, v in st_g.items():
-                    if k == "sigma" and is_pallas:
-                        v[:, ix] = st_shd[k][d][:, :len(ix)]
-                    elif v.ndim >= 1 and v.shape[0] == f.n_elements:
+                    if v.ndim >= 1 and v.shape[0] == f.n_elements:
                         v[ix] = st_shd[k][d][:len(ix)]
             u_all[f.name] = jnp.asarray(u_g, dtype)
             if sync_fstate:

@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..utils.precision import highest
+
 
 def batch_state(state, n_scenarios: int, jitter=None, mesh: Mesh | None = None,
                 data_axis: str = "data"):
@@ -49,7 +51,7 @@ def batch_params(params, sweep: dict, n_scenarios: int, system=None):
     global_solver='cg' (matrix-free) nothing extra is needed; with
     'ell'/'dia', pass the initialized `system` and the per-scenario global
     matrices are re-assembled on the host (same sparsity, batched values) so
-    the single-kernel/fused CG paths stay usable under vmap. 'dense' would
+    the precomputed-matrix CG paths stay usable under vmap. 'dense' would
     need 64 host inversions — use 'cg' there.
     """
     weightish = {"weight", "k", "mu", "lam", "stiffness"}
@@ -216,4 +218,4 @@ def _rebatch_solver(batched, sweep, n_scenarios, system):
 def vmap_step(system):
     """Jitted vmapped step over a leading scenario axis of (state, params)."""
     step = system._make_step()
-    return jax.jit(jax.vmap(step), donate_argnums=(0,))
+    return jax.jit(highest(jax.vmap(step)), donate_argnums=(0,))

@@ -15,6 +15,8 @@ import numpy as np
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..utils.precision import highest
+
 
 def make_sim_mesh(devices=None, data: int = 1, elem: int | None = None) -> Mesh:
     """2D ('data','elem') mesh. elem defaults to n_devices/data."""
@@ -83,13 +85,8 @@ def shard_params_and_state(system, mesh: Mesh, elem_axis: str = "elem"):
     if getattr(system, "_solver_mode", None) in ("ell", "dia"):
         raise ValueError(
             "this GSPMD helper requires global_solver='cg' or 'dense'; for "
-            "the ell/dia fast path use parallel.spmd.SpmdSystem (per-shard "
-            "fused kernels + row-sharded CG under shard_map)"
-        )
-    if any(getattr(f, "backend", "xla") == "pallas" for f in system._force_list):
-        raise ValueError(
-            "this GSPMD helper requires backend='xla' constraint batches; "
-            "pallas-backed batches shard through parallel.spmd.SpmdSystem"
+            "ell/dia use parallel.spmd.SpmdSystem (per-shard local steps "
+            "+ row-sharded CG under shard_map)"
         )
     n_shards = mesh.shape[elem_axis]
     pad_batches(system, n_shards)
@@ -126,5 +123,6 @@ def shard_params_and_state(system, mesh: Mesh, elem_axis: str = "elem"):
         system._masses_dev, NamedSharding(mesh, P())
     )
     # rebuild the jitted step so it closes over the sharded masses
-    system._step_fn = jax.jit(system._make_step(), donate_argnums=(0,))
+    system._step_fn = jax.jit(highest(system._make_step()),
+                              donate_argnums=(0,))
     return system.params, system.state

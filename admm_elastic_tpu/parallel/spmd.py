@@ -1,14 +1,13 @@
-"""SPMD element-sharded ADMM step for the FAST path (fused pallas local
-kernels + precomputed-ELL global CG) under `jax.shard_map`.
+"""SPMD element-sharded ADMM step (per-shard local steps + precomputed-ELL
+global CG) under `jax.shard_map`.
 
 This is the multi-chip design SURVEY §2.6-2.7 calls for, distributing the
 reduction structure of the reference's sparse matvecs (System.cpp:54-62):
 
   * **Local step** — each shard owns a contiguous block of every constraint
-    batch (elements padded per-shard, pad weight 0) and runs the SAME fused
-    Pallas kernels as the single-chip path on its local block: selector
-    apply -> SVD -> prox -> dual update -> D^T W^2 (z-u) contribution, one
-    kernel launch per shard per iteration.
+    batch (elements padded per-shard, pad weight 0) and runs the SAME local
+    step as the single-device path on its local block: selector apply ->
+    SVD -> prox -> dual update -> D^T W^2 (z-u) contribution.
   * **RHS combine (the halo exchange)** — each shard reduces its local
     contribution rows through a per-shard vertex incidence table (gather +
     sum, scatter-free), then a single `psum` over the element axis combines
@@ -37,6 +36,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.solver import assemble_transpose_incidence
+from ..utils.precision import highest
 
 
 def _round_up(x: int, unit: int) -> int:
@@ -93,8 +93,6 @@ class SpmdSystem:
     # ------------------------------------------------------------- build
 
     def _build(self):
-        from ..ops.pallas.tet_local import BLOCK
-
         sysm = self.system
         S = self.S
         dtype = sysm.settings.dtype
@@ -109,9 +107,7 @@ class SpmdSystem:
         for f in forces:
             p = {k: np.asarray(v) for k, v in sysm.params[f.name].items()}
             E = f.n_elements
-            is_pallas = getattr(f, "backend", "xla") == "pallas"
-            unit = BLOCK if is_pallas else 8
-            El = _round_up(_round_up(E, S) // S, unit)
+            El = _round_up(_round_up(E, S) // S, 8)
             target = S * El
 
             # element-leading params: pad by replicating the last element,
@@ -119,8 +115,6 @@ class SpmdSystem:
             # reduction and from the (already assembled) global matrix
             padded = {}
             for k, v in p.items():
-                if k == "coeff_p":
-                    continue  # rebuilt per shard below
                 if v.ndim >= 1 and v.shape[0] == E:
                     padded[k] = _pad_rows(v, target)
                 else:
@@ -135,35 +129,18 @@ class SpmdSystem:
                 else:
                     # broadcast scalars/small arrays per shard
                     local[k] = np.broadcast_to(v, (S,) + v.shape).copy()
-            if is_pallas:
-                cps = [
-                    f._coeff_planes({"coeff": local["coeff"][s]})
-                    for s in range(S)
-                ]
-                local["coeff_p"] = np.stack(cps, axis=0)
             shd_params[f.name] = local
 
             # duals + per-element state, re-partitioned from the live state
             u = np.asarray(sysm.state["u"][f.name])
-            if is_pallas:
-                u9 = u[:, :E]  # drop global padding
-                u9 = np.pad(u9, ((0, 0), (0, target - E)))
-                shd_u[f.name] = u9.reshape(9, S, El).transpose(1, 0, 2)
-            else:
-                up = np.zeros((target,) + u.shape[1:], u.dtype)
-                up[:E] = u[:E]
-                shd_u[f.name] = up.reshape((S, El) + u.shape[1:])
+            up = np.zeros((target,) + u.shape[1:], u.dtype)
+            up[:E] = u[:E]
+            shd_u[f.name] = up.reshape((S, El) + u.shape[1:])
 
             st = {}
             for k, v in sysm.state["forces"][f.name].items():
                 v = np.asarray(v)
-                if k == "sigma" and is_pallas:
-                    sig = v[:, :E]
-                    sig = np.pad(
-                        sig, ((0, 0), (0, target - E)), constant_values=1.0
-                    )
-                    st[k] = sig.reshape(3, S, El).transpose(1, 0, 2)
-                elif v.ndim >= 1 and v.shape[0] == E:
+                if v.ndim >= 1 and v.shape[0] == E:
                     st[k] = _pad_rows(v, target).reshape(
                         (S, El) + v.shape[1:]
                     )
@@ -192,7 +169,7 @@ class SpmdSystem:
         shd_solver = {"inc": np.stack(incs, axis=0)}
 
         # row-sharded ELL operator (pad rows to S*nb with identity rows).
-        # dia-mode systems (single-kernel CG on one chip) re-assemble the
+        # dia-mode systems (sparse-diagonal CG on one device) re-assemble the
         # same matrix in ELL form here: the row-sharded matvec is the
         # distributed formulation of the same solve.
         if sysm._solver_mode == "dia":
@@ -263,7 +240,8 @@ class SpmdSystem:
                 "explicit": rep_params,
             }
         )
-        self._step_fn = jax.jit(self._make_step(), donate_argnums=(0, 1))
+        self._step_fn = jax.jit(highest(self._make_step()),
+                                donate_argnums=(0, 1))
         self._rollouts = {}
         #: per-step residual aux of the last step()/run() (empty dict
         #: unless collect_residuals)
@@ -488,7 +466,7 @@ class SpmdSystem:
             )
             return rep, shd, aux
 
-        return jax.jit(rollout, donate_argnums=(0, 1))
+        return jax.jit(highest(rollout), donate_argnums=(0, 1))
 
     def run(self, n_steps: int):
         if n_steps not in self._rollouts:

@@ -1,5 +1,5 @@
 """Scene/config layer: reads the reference's XML dialect (two root elements,
-<mclScene> + <admmelastic>) and builds a System from it — the TPU-framework
+<mclScene> + <admmelastic>) and builds a System from it — the JAX-framework
 equivalent of mclscene's SceneManager + the reference's ForceBuilder/SimContext
 glue (src/SimContext.cpp, src/ForceBuilder.cpp)."""
 

@@ -1,6 +1,6 @@
 """SimContext: scene-file -> running simulation.
 
-The TPU-framework equivalent of the reference's binding layer
+The JAX-framework equivalent of the reference's binding layer
 (src/SimContext.cpp + src/ForceBuilder.cpp): loads a scene XML, creates
 geometry for every object, appends dynamic objects' vertices/masses to the
 System, instantiates constraint batches from the named <Force> definitions,
@@ -115,8 +115,7 @@ def _build_geometry(obj: Component, base_dir: str):
     raise ValueError(f"unknown object type {obj.type!r} for {obj.name!r}")
 
 
-def _make_constraints(obj_mesh, faces, force: Component, offset: int,
-                      backend: str = "xla"):
+def _make_constraints(obj_mesh, faces, force: Component, offset: int):
     """XML force type -> constraint batches (ForceBuilder.cpp:76-446)."""
     ftype = force.type.lower()
     out = []
@@ -137,7 +136,6 @@ def _make_constraints(obj_mesh, faces, force: Component, offset: int,
         out.append(
             LimitedTriangleStrain(
                 faces + offset, stiffness, limit_min=lim[0], limit_max=lim[1],
-                backend=backend,
             )
         )
     elif ftype == "bend":
@@ -154,14 +152,13 @@ def _make_constraints(obj_mesh, faces, force: Component, offset: int,
         stiffness = req("stiffness").as_double()
         ws = force.get("weight_scale").as_double() if force.exists("weight_scale") else 1.0
         out.append(LinearTetStrain(obj_mesh.tets + offset, stiffness,
-                                   weight_scale=ws, backend=backend))
+                                   weight_scale=ws))
     elif ftype in ("neohookeantet", "stvktet"):
         mu = req("mu").as_double()
         lam = req("lambda").as_double()
         it = force.get("max_iterations").as_int() if force.exists("max_iterations") else 10
         model = "nh" if ftype == "neohookeantet" else "stvk"
-        out.append(HyperElasticTet(obj_mesh.tets + offset, mu, lam, it, model,
-                                   backend=backend))
+        out.append(HyperElasticTet(obj_mesh.tets + offset, mu, lam, it, model))
     elif ftype == "volpres":
         out.append(
             TetVolume(
@@ -244,7 +241,6 @@ class SimContext:
                 )
             for batch in _make_constraints(
                 mesh, so.faces, cfg.forces[fname], so.index_offset,
-                backend=self.system.settings.local_backend,
             ):
                 self.system.add_force(batch)
 

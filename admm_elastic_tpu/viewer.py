@@ -3,7 +3,7 @@
 The reference renders interactively through GLFW/OpenGL
 (deps/mclscene/src/Application.cpp:69-172: orbit/zoom camera, SPACE
 run/pause, P single-step) — a windowed GUI this container cannot open.
-The TPU-framework analog exports the rollout as ONE dependency-free HTML
+The JAX-framework analog exports the rollout as ONE dependency-free HTML
 file with an embedded WebGL2 renderer: drag = orbit, wheel = zoom,
 SPACE = play/pause, ←/→ = single-step, slider = scrub. Flat shading
 comes from fragment-shader derivatives (no normals are stored), so the

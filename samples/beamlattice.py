@@ -1,7 +1,7 @@
-"""Lattice fast-path demo: a clamped NeoHookean beam sagging under
-gravity, stepped by the whole-rollout single-kernel path
-(core/lattice.LatticeStepper). Compare with the identical general-System
-configuration (global_solver='dia', backend='pallas').
+"""Whole-mesh layout demo: a clamped NeoHookean beam sagging under
+gravity, stepped through the banded layout (Settings.lattice_fast_path:
+one XLA program per step on a one-device mesh). Compare with the same
+System on the general path (lattice_fast_path=False).
 
 Run: python samples/beamlattice.py [--steps N] [--render out.png]
 """
@@ -24,20 +24,25 @@ def main():
 
     import jax.numpy as jnp
 
-    from admm_elastic_tpu import LatticeStepper
+    from admm_elastic_tpu import Settings, System
     from admm_elastic_tpu.geometry import make_beam_tets
+    from admm_elastic_tpu.models import (
+        ExplicitForce, HyperElasticTet, StaticAnchor)
 
     nx, ny, nz = args.dims
     beam = make_beam_tets(nx, ny, nz, size=0.05)
     n = beam.n_vertices
     anchored = np.flatnonzero(beam.vertices[:, 0] < 1e-9)
-    lat = LatticeStepper(
-        nx, ny, nz, 0.05, np.full(n, 50.0 / n), 1e5, 1e5, anchored,
-        dt=0.04, admm_iters=10, newton_iters=5, cg_iters=25,
-        dtype=jnp.float32,
-    )
-    lat.run(args.steps)
-    x = np.asarray(lat.x)
+    sys_ = System(Settings(timestep_s=0.04, admm_iters=10, verbose=0,
+                           dtype=jnp.float32, global_solver="dia",
+                           cg_fixed_iters=25, lattice_fast_path=True))
+    sys_.add_nodes(beam.vertices, np.full(n, 50.0 / n))
+    sys_.add_force(StaticAnchor(anchored))
+    sys_.add_force(HyperElasticTet(beam.tets, 1e5, 1e5, max_iters=5))
+    sys_.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert sys_.initialize() and sys_._lattice is not None
+    sys_.run(args.steps)
+    x = sys_.x
     tip = x[np.argmax(beam.vertices[:, 0])]
     print(f"{nx}x{ny}x{nz} cells ({beam.n_tets} tets), {args.steps} steps: "
           f"tip at {tip}, min y {x[:, 1].min():.4f} "

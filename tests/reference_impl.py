@@ -1,6 +1,6 @@
 """Independent, slow, pure-numpy oracle implementing the reference ADMM
 algorithm (System.cpp:26-75) with explicit sparse-as-dense matrices and
-per-force Python loops. Used by parity tests to validate the TPU framework's
+per-force Python loops. Used by parity tests to validate the JAX framework's
 vectorized implementation against the exact published algorithm. This is a
 re-derivation from the algorithm's math, built for testing only.
 """

@@ -183,7 +183,8 @@ def test_amg_rebuild_values_matches_fresh_build():
 
 
 def test_amg_rejects_unsupported_modes():
-    s = System(Settings(global_solver="dia", preconditioner="amg",
+    """The dense global step has no PCG to precondition."""
+    s = System(Settings(global_solver="dense", preconditioner="amg",
                         verbose=0))
     s.add_nodes(np.zeros((9, 3)), np.ones(9))
     s.add_force(StaticAnchor([0]))

@@ -1,11 +1,17 @@
-"""Banded-mesh whole-timestep kernel (core/banded.py +
-ops/pallas/banded_step.py) parity vs the general System dia path.
+"""Banded whole-timestep layout (core/banded.py, stepped by the XLA program
+of parallel/banded_spmd.ShardedBandedStepper on a one-device mesh) parity
+vs the general System dia path.
 
 The test meshes are JITTERED beam lattices: vertex positions are randomly
-perturbed so detect_lattice / detect_grid_numbering reject them (no
-constant-offset stencils exist) while the vertex numbering stays banded —
-i.e. genuinely unstructured geometry exercising the windowed gather /
-permutation scatter, not the lattice shortcuts."""
+perturbed so detect_grid_numbering rejects them (no constant-offset
+stencils exist) while the vertex numbering stays banded — i.e. genuinely
+unstructured geometry exercising the windowed gather / permutation
+scatter.
+
+The layout's local step is the plane arithmetic of ops/lanes.py, which is
+also the body of the Pallas NH/StVK kernel. The general-path references
+run that kernel in interpret mode (the `nh_kernel` fixture) so both sides
+share one prox implementation and agree to round-off."""
 
 import os
 import sys
@@ -17,7 +23,7 @@ import numpy as np
 import pytest
 
 from admm_elastic_tpu import Settings, System
-from admm_elastic_tpu.core.banded import SUB, BandedStepper, place_elements
+from admm_elastic_tpu.core.banded import SUB, place_elements
 from admm_elastic_tpu.geometry import make_beam_tets
 from admm_elastic_tpu.models import (
     Collision,
@@ -27,6 +33,7 @@ from admm_elastic_tpu.models import (
     LinearTetStrain,
     StaticAnchor,
 )
+from admm_elastic_tpu.parallel.banded_spmd import ShardedBandedStepper
 
 F64 = jnp.float64
 
@@ -54,16 +61,11 @@ def build_system(mesh, *, fast, model="nh", mu=1e4, lam=2.5e4,
         rng = np.random.RandomState(seed)
         mu = mu * (0.5 + rng.rand(len(mesh.tets)))
         lam = lam * (0.5 + rng.rand(len(mesh.tets)))
-    # backend='pallas' on BOTH sides: the banded kernel embeds the same
-    # prox code as the pallas backend, so parity is exact; the xla
-    # backend's newton_minimize differs in line-search fp detail
-    # (~1e-10 after one step, see tests/test_lattice.py).
     if model == "arap":
-        s.add_force(LinearTetStrain(mesh.tets, mu, backend="pallas"))
+        s.add_force(LinearTetStrain(mesh.tets, mu))
     else:
         s.add_force(HyperElasticTet(mesh.tets, mu=mu, lam=lam,
-                                    max_iters=4, model=model,
-                                    backend="pallas"))
+                                    max_iters=4, model=model))
     s.add_force(StaticAnchor([0, 1], weight=anchor_w))
     if floor_y is not None:
         s.add_force(Collision([Floor(center=(0.0, floor_y, 0.0))],
@@ -74,11 +76,12 @@ def build_system(mesh, *, fast, model="nh", mu=1e4, lam=2.5e4,
 
 
 def _assert_banded(s):
-    assert s._lattice is not None, "banded fast path did not engage"
-    assert isinstance(s._lattice, BandedStepper), type(s._lattice)
+    assert s._lattice is not None, "banded layout did not engage"
+    assert isinstance(s._lattice, ShardedBandedStepper), type(s._lattice)
+    assert s._lattice.D == 1
 
 
-def test_banded_single_iteration_exact():
+def test_banded_single_iteration_exact(nh_kernel):
     """One ADMM iteration is BIT-LEVEL equal to the general dia path
     (same prox code, same CG): positions, tet duals, warm starts and
     anchor duals all match to f64 round-off. Multi-iteration trajectories
@@ -88,15 +91,16 @@ def test_banded_single_iteration_exact():
     reason tests/test_lattice.py compares cross-implementation
     trajectories at loose tolerance."""
     mesh = jittered_beam()
-    ref = build_system(mesh, fast=False, admm=1)
     fast = build_system(mesh, fast=True, admm=1)
     _assert_banded(fast)
-    ref.step()
     fast.step()
+    with nh_kernel():
+        ref = build_system(mesh, fast=False, admm=1)
+        ref.step()
     np.testing.assert_allclose(fast.x, ref.x, rtol=0, atol=1e-13)
     np.testing.assert_allclose(fast.v, ref.v, rtol=0, atol=1e-12)
     # duals: map the chunk planes back to element order
-    st = fast._lattice
+    st = fast._lattice.detach()
     idx = np.asarray(mesh.tets, np.int64)
     subs, _perm = place_elements(idx)
     d = np.asarray(st.state["d"])
@@ -114,51 +118,58 @@ def test_banded_single_iteration_exact():
         for p in range(3):
             w_b[blk[m], p] = d[c, (9 + p) * SUB : (10 + p) * SUB][m]
     tk = [k for k in ref.state["u"] if "Hyper" in k][0]
-    ua = np.asarray(ref.state["u"][tk])[:, :E].T
-    sig = np.asarray(ref.state["forces"][tk]["sigma"])[:, :E].T
+    # canonical u[e, b, a] = F[a][b]; the layout stores plane 3a + b
+    ua = np.swapaxes(np.asarray(ref.state["u"][tk]), 1, 2).reshape(E, 9)
+    sig = np.asarray(ref.state["forces"][tk]["sigma"])
     np.testing.assert_allclose(u_b, ua, rtol=0, atol=1e-14)
     np.testing.assert_allclose(w_b, sig, rtol=0, atol=1e-14)
 
 
-@pytest.mark.parametrize("model", ["nh", "stvk", "arap"])
-def test_banded_matches_general(model):
-    mesh = jittered_beam()
-    ref = build_system(mesh, fast=False, model=model)
-    fast = build_system(mesh, fast=True, model=model)
+def _general(nh_kernel, mesh, steps, **kw):
+    """The general dia path with the shared prox implementation."""
+    with nh_kernel():
+        ref = build_system(mesh, fast=False, **kw)
+        for _ in range(steps):
+            ref.step()
+    return ref
+
+
+def _layout(mesh, steps, **kw):
+    fast = build_system(mesh, fast=True, **kw)
     _assert_banded(fast)
-    for _ in range(5):
-        ref.step()
+    for _ in range(steps):
         fast.step()
+    return fast
+
+
+@pytest.mark.parametrize("model", ["nh", "stvk", "arap"])
+def test_banded_matches_general(model, nh_kernel):
+    mesh = jittered_beam()
+    ref = _general(nh_kernel, mesh, 5, model=model)
+    fast = _layout(mesh, 5, model=model)
     np.testing.assert_allclose(fast.x, ref.x, rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(fast.v, ref.v, rtol=1e-5, atol=1e-7)
 
 
-def test_banded_per_element_materials():
-    """Per-element mu/lam — beyond what the lattice kernel supports."""
+def test_banded_per_element_materials(nh_kernel):
+    """Per-element mu/lam."""
     mesh = jittered_beam(seed=3)
-    ref = build_system(mesh, fast=False, seed=7)
-    fast = build_system(mesh, fast=True, seed=7)
-    _assert_banded(fast)
-    for _ in range(5):
-        ref.step()
-        fast.step()
+    ref = _general(nh_kernel, mesh, 5, seed=7)
+    fast = _layout(mesh, 5, seed=7)
     np.testing.assert_allclose(fast.x, ref.x, rtol=1e-6, atol=1e-8)
 
 
-def test_banded_floor_collision():
+def test_banded_floor_collision(nh_kernel):
     mesh = jittered_beam(seed=5)
-    ref = build_system(mesh, fast=False, floor_y=0.0, anchor_w=0.0)
-    fast = build_system(mesh, fast=True, floor_y=0.0, anchor_w=0.0)
-    _assert_banded(fast)
-    for _ in range(8):  # enough steps to hit the floor
-        ref.step()
-        fast.step()
+    # enough steps to hit the floor
+    ref = _general(nh_kernel, mesh, 8, floor_y=0.0, anchor_w=0.0)
+    fast = _layout(mesh, 8, floor_y=0.0, anchor_w=0.0)
     assert fast.x[:, 1].min() > -0.25  # the floor actually acts
     np.testing.assert_allclose(fast.x, ref.x, rtol=1e-6, atol=1e-8)
 
 
-def test_banded_sphere_cylinder_collision():
-    """plinko-class analytic shapes in-kernel: a mixed Floor + Sphere +
+def test_banded_sphere_cylinder_collision(nh_kernel):
+    """plinko-class analytic shapes in the layout: a mixed Floor + Sphere +
     Cylinder CollisionForce, declaration-order projection, matches the
     general path (reference loop CollisionForce.cpp:53-70)."""
     from admm_elastic_tpu.models import Cylinder, Sphere
@@ -182,19 +193,19 @@ def test_banded_sphere_cylinder_collision():
                             global_solver="dia", dense_max_nodes=0))
         s.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
         s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4,
-                                    max_iters=4, model="nh",
-                                    backend="pallas"))
+                                    max_iters=4, model="nh"))
         s.add_force(Collision(list(shapes), n_nodes=n))
         s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert s.initialize()
         return s
 
-    ref = build(False)
     fast = build(True)
     _assert_banded(fast)
-    for _ in range(10):  # free fall onto the shapes
-        ref.step()
-        fast.step()
+    with nh_kernel():
+        ref = build(False)
+        for _ in range(10):  # free fall onto the shapes
+            ref.step()
+            fast.step()
     assert fast.x[:, 1].min() > lo[1] - 0.8, "shapes must stop the fall"
     np.testing.assert_allclose(fast.x, ref.x, rtol=1e-6, atol=1e-8)
 
@@ -211,43 +222,7 @@ def test_banded_rollout_windows_match_steps():
                                rtol=1e-12, atol=1e-14)
 
 
-@pytest.mark.slow
-def test_banded_halves_equivalent():
-    """Row-half chunking of the local-step body (the VMEM-stack fix for
-    100k-scale meshes) computes the same physics: elements are
-    independent in the local step; only the b-scatter's per-row SUM
-    grouping changes (64 rows vs 2x32). The ~1e-16 regrouping noise can
-    flip a discrete Newton-backtracking branch across iterations (see
-    test_banded_single_iteration_exact's docstring), so multi-step
-    trajectories compare at the standard loose tolerance."""
-    mesh = jittered_beam(seed=5)
-
-    results = {}
-    for halves in (1, 2, 4):
-        s = build_system(mesh, fast=True)
-        _assert_banded(s)
-
-        # monkey-patch the rollout to force the halving factor
-        from admm_elastic_tpu.ops.pallas import banded_step as bs
-
-        orig = bs.banded_rollout
-
-        def forced(*a, _h=halves, **kw):
-            kw["halves"] = _h
-            return orig(*a, **kw)
-
-        bs.banded_rollout = forced
-        try:
-            for _ in range(3):
-                s.step()
-        finally:
-            bs.banded_rollout = orig
-        results[halves] = np.asarray(s.x)
-    np.testing.assert_allclose(results[2], results[1], rtol=1e-6, atol=1e-8)
-    np.testing.assert_allclose(results[4], results[1], rtol=1e-6, atol=1e-8)
-
-
-def test_banded_set_positions_roundtrip():
+def test_banded_set_positions_roundtrip(nh_kernel):
     """x/v setters route through the 2D plane layout (bunnyexpand-style
     scramble support)."""
     mesh = jittered_beam(seed=11)
@@ -257,17 +232,18 @@ def test_banded_set_positions_roundtrip():
     newx = mesh.vertices + 0.01 * rng.randn(*mesh.vertices.shape)
     s.x = newx
     np.testing.assert_allclose(s.x, newx, rtol=0, atol=1e-12)
-    ref = build_system(mesh, fast=False)
-    ref.x = newx
     s.step()
-    ref.step()
+    with nh_kernel():
+        ref = build_system(mesh, fast=False)
+        ref.x = newx
+        ref.step()
     np.testing.assert_allclose(s.x, ref.x, rtol=1e-6, atol=1e-8)
 
 
 @pytest.mark.slow
-def test_banded_in_kernel_primal_residuals():
-    """collect_residuals='primal' keeps the banded fast path engaged and
-    emits the per-iteration primal residual ||W(Dx-z)|| in-kernel; it
+def test_banded_in_kernel_primal_residuals(nh_kernel):
+    """collect_residuals='primal' keeps the banded layout engaged and
+    emits the per-iteration primal residual ||W(Dx-z)||; it
     matches the general path's instrumented values (tets + anchors +
     floor all contribute)."""
     mesh = jittered_beam(seed=17)
@@ -281,7 +257,7 @@ def test_banded_in_kernel_primal_residuals():
         s.add_nodes(mesh.vertices + np.array([0.0, 0.3, 0.0]),
                     np.full(n, 2.0 / n))
         s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4,
-                                    max_iters=4, backend="pallas"))
+                                    max_iters=4))
         s.add_force(StaticAnchor([0, 1], weight=500.0))
         s.add_force(Collision([Floor(center=(0.0, 0.0, 0.0))],
                               n_nodes=n))
@@ -289,11 +265,13 @@ def test_banded_in_kernel_primal_residuals():
         assert s.initialize()
         return s
 
-    ref = build(False, True)
     fast = build(True, "primal")
     _assert_banded(fast)
+    with nh_kernel():
+        ref = build(False, True)
     for k in range(6):
-        ref.step()
+        with nh_kernel():
+            ref.step()
         fast.step()
         rp_ref = np.asarray(ref.last_aux["primal_residual"])
         rp_fast = np.asarray(fast.last_aux["primal_residual"])
@@ -301,12 +279,11 @@ def test_banded_in_kernel_primal_residuals():
         np.testing.assert_allclose(rp_fast, rp_ref, rtol=1e-5, atol=1e-9)
         assert rp_ref[-1] < rp_ref[0]  # ADMM converges within the step
 
-    # run(): the LAST kernel window's (window_steps, iters) residuals
-    # surface (4 steps < the 10-step window => four 1-step windows)
+    # run(): stacked (n_steps, iters) residuals, as the general rollout
     fast2 = build(True, "primal")
     fast2.run(4)
     rp = np.asarray(fast2.last_aux["primal_residual"])
-    assert rp.shape == (1, 6) and np.isfinite(rp).all()
+    assert rp.shape == (4, 6) and np.isfinite(rp).all()
 
     # 'primal' on a non-qualifying scene falls back to the general path
     # and still collects (dual stays zeros)
@@ -354,48 +331,23 @@ def test_place_elements_distinct_lanes():
         assert rank[e] <= pos + MAX_OPEN * 128
 
 
-@pytest.mark.slow
-def test_banded_in_kernel_dual_residuals():
-    """collect_residuals=True now keeps the banded fast path engaged and
-    emits BOTH residuals in-kernel: the primal ||W(Dx-z)|| and the dual
-    ||dt^2 D^T W^2 (z - z_prev)|| (System.cpp:64-65), matching the
-    general path's instrumented values (tets + anchors + floor all
-    contribute to both accumulations)."""
+def test_banded_dual_residuals_take_general_path():
+    """collect_residuals=True (primal AND dual, System.cpp:64-65) is not
+    covered by the banded layout: the route falls back to the general
+    path, which collects both."""
     mesh = jittered_beam(seed=23)
-
-    def build(fast):
-        n = mesh.n_vertices
-        s = System(Settings(timestep_s=0.04, admm_iters=6, verbose=0,
-                            dtype=F64, lattice_fast_path=fast,
-                            global_solver="dia", dense_max_nodes=0,
-                            collect_residuals=True))
-        s.add_nodes(mesh.vertices + np.array([0.0, 0.3, 0.0]),
-                    np.full(n, 2.0 / n))
-        s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4,
-                                    max_iters=4, backend="pallas"))
-        s.add_force(StaticAnchor([0, 1], weight=500.0))
-        s.add_force(Collision([Floor(center=(0.0, 0.0, 0.0))],
-                              n_nodes=n))
-        s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
-        assert s.initialize()
-        return s
-
-    ref = build(False)
-    fast = build(True)
-    _assert_banded(fast)
-    for k in range(5):
-        ref.step()
-        fast.step()
-        for key in ("primal_residual", "dual_residual"):
-            r_ref = np.asarray(ref.last_aux[key])
-            r_fast = np.asarray(fast.last_aux[key])
-            assert r_fast.shape == r_ref.shape, key
-            np.testing.assert_allclose(r_fast, r_ref, rtol=1e-5,
-                                       atol=1e-9, err_msg=key)
-        # trajectories stay in lockstep too
-        np.testing.assert_allclose(fast.x, ref.x, rtol=1e-6, atol=1e-8)
-
-    fast2 = build(True)
-    fast2.run(4)
-    rd = np.asarray(fast2.last_aux["dual_residual"])
-    assert rd.shape == (1, 6) and np.isfinite(rd).all() and (rd > 0).all()
+    n = mesh.n_vertices
+    s = System(Settings(timestep_s=0.04, admm_iters=4, verbose=0,
+                        dtype=F64, lattice_fast_path=True,
+                        global_solver="dia", dense_max_nodes=0,
+                        collect_residuals=True))
+    s.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
+    s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4, max_iters=4))
+    s.add_force(StaticAnchor([0, 1], weight=500.0))
+    s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
+    assert s.initialize()
+    assert s._lattice is None
+    s.step()
+    for key in ("primal_residual", "dual_residual"):
+        r = np.asarray(s.last_aux[key])
+        assert r.shape == (4,) and np.isfinite(r).all() and (r > 0).all()

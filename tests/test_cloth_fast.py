@@ -1,9 +1,13 @@
-"""Cloth whole-timestep kernel vs the general System path.
+"""Grid-cloth whole-timestep layout vs the general System path.
 
-Mirrors tests/test_lattice.py for the cloth fast path (core/cloth.py +
-ops/pallas/cloth_step.py): the single-kernel stepper must reproduce the
-general {LimitedTriangleStrain, Bend, StaticAnchor, gravity+wind, dia}
-System trajectory to round-off, in any vertex numbering.
+The cloth layout (core/cloth.py, stepped by the XLA program of
+parallel/cloth_spmd.ShardedClothStepper on a one-device mesh) must
+reproduce the general {LimitedTriangleStrain, Bend, StaticAnchor,
+gravity+wind, dia} System trajectory to round-off, in any vertex
+numbering. The general-path references project triangles with the
+layout's own plane arithmetic (the `tri_lanes` fixture);
+test_cloth_fast_path_vs_xla_backend compares against the model's
+independent SVD instead.
 """
 
 import jax.numpy as jnp
@@ -21,8 +25,14 @@ from admm_elastic_tpu.models import (
 )
 
 
+@pytest.fixture(autouse=True)
+def _lanes_reference(request, tri_lanes):
+    if "xla_backend" not in request.node.name:
+        tri_lanes()
+
+
 def _cloth_system(fast, *, nx=8, ny=6, wind=True, bend=True, anchors=True,
-                  scramble=None, backend="pallas", dtype=jnp.float64,
+                  scramble=None, dtype=jnp.float64,
                   iters=10, cg=30, settings_kw=None):
     mesh = make_plane_grid(nx, ny)
     n = mesh.n_vertices
@@ -41,8 +51,7 @@ def _cloth_system(fast, *, nx=8, ny=6, wind=True, bend=True, anchors=True,
     kw.update(settings_kw or {})
     sys_ = System(Settings(**kw))
     sys_.add_nodes(verts, np.full(n, 0.5 / n))
-    sys_.add_force(LimitedTriangleStrain(faces, 100.0, 0.95, 1.05,
-                                         backend=backend))
+    sys_.add_force(LimitedTriangleStrain(faces, 100.0, 0.95, 1.05))
     if bend:
         sys_.add_force(Bend(extract_hinges(faces), 20.0))
     if anchors:
@@ -58,7 +67,7 @@ def _cloth_system(fast, *, nx=8, ny=6, wind=True, bend=True, anchors=True,
 def _compare(steps=5, atol=1e-12, **kw):
     gen = _cloth_system(False, **kw)
     fast = _cloth_system(True, **kw)
-    assert fast._lattice is not None, "cloth fast path did not engage"
+    assert fast._lattice is not None, "cloth layout did not engage"
     assert fast._lattice.model == "cloth"
     for _ in range(steps):
         gen.step()
@@ -69,15 +78,15 @@ def _compare(steps=5, atol=1e-12, **kw):
 
 def test_cloth_fast_path_full_physics():
     """Strain limiting + bend + anchors + gravity + wind: trajectory match
-    to round-off against the general dia path (pallas local backend —
-    identical projection code)."""
+    to round-off against the general dia path (identical projection
+    code)."""
     _compare()
 
 
 def test_cloth_fast_path_vs_xla_backend():
-    """Same comparison against the xla-backend general path (independent
+    """Same comparison against the model's own XLA projection (independent
     SVD implementation) — loose tolerance covers fp ordering differences."""
-    _compare(atol=1e-8, backend="xla")
+    _compare(atol=1e-8)
 
 
 def test_cloth_fast_path_no_wind_no_bend():
@@ -105,7 +114,7 @@ def test_cloth_fast_path_adversarial_params():
     (0.6/1.02 under strong wind), nondefault anchor weight, skewed
     gravity, strong off-axis wind — guards against coefficient bugs that
     default-parameter tests cannot see (the round-1 NH Hessian bug
-    class). Per-ELEMENT parameters are out of the cloth kernel's
+    class). Per-ELEMENT parameters are out of the cloth layout's
     documented scope (uniform per stencil group) and fall back to the
     general path — asserted below."""
     mesh = make_plane_grid(7, 5)
@@ -118,8 +127,7 @@ def test_cloth_fast_path_adversarial_params():
         ))
         s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
         s.add_force(LimitedTriangleStrain(
-            mesh.faces, stiff, limit_min=0.6, limit_max=1.02,
-            backend="pallas"))
+            mesh.faces, stiff, limit_min=0.6, limit_max=1.02))
         s.add_force(Bend(extract_hinges(mesh.faces), 3.5))
         top = np.flatnonzero(np.abs(mesh.vertices[:, 1] - 1.0) < 1e-9)
         s.add_force(StaticAnchor(top[:3], weight=77.0))
@@ -145,7 +153,7 @@ def test_cloth_fast_path_adversarial_params():
 
 
 def test_cloth_in_kernel_primal_residuals():
-    """collect_residuals='primal' keeps the cloth fast path engaged and
+    """collect_residuals='primal' keeps the cloth layout engaged and
     emits per-iteration primal residuals matching the general path's
     instrumentation (triangle + bend + anchor pieces)."""
 
@@ -158,8 +166,7 @@ def test_cloth_in_kernel_primal_residuals():
             collect_residuals=collect,
         ))
         s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                                          backend="pallas"))
+        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
         s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
         top = np.flatnonzero(np.abs(mesh.vertices[:, 1] - 1.0) < 1e-9)
         s.add_force(StaticAnchor(top[:4]))
@@ -181,7 +188,7 @@ def test_cloth_in_kernel_primal_residuals():
 
 
 def test_cloth_rollout_matches_stepping():
-    """run(n) (whole-rollout kernel windows) == n x step()."""
+    """run(n) (scanned rollout windows) == n x step()."""
     a = _cloth_system(True, nx=6, ny=5)
     b = _cloth_system(True, nx=6, ny=5)
     assert a._lattice is not None and b._lattice is not None
@@ -250,16 +257,16 @@ def test_cloth_fast_path_state_access(key):
 
 
 def test_cloth_in_kernel_multigrid_trajectory():
-    """preconditioner='amg' routes the cloth kernel onto the in-kernel 2D
-    geometric multigrid (core/mg.py ladder + the vcycle in
-    ops/pallas/cloth_step.py). At a small fixed vcycle-PCG budget the
-    trajectory matches the same kernel running a deep Jacobi budget
-    (both converge the global solves), f64."""
+    """preconditioner='amg' takes the general path with the aggregation
+    AMG V-cycle (core/amg.py) even when the cloth layout is requested. At
+    a small fixed V-cycle-PCG budget the trajectory matches the cloth
+    layout running a deep Jacobi budget (both converge the global
+    solves), f64."""
     mg = _cloth_system(True, nx=20, ny=15, cg=12,
                        settings_kw={"preconditioner": "amg"})
-    assert mg._lattice is not None and mg._lattice.model == "cloth"
-    assert mg._lattice._mg_meta_static is not None
+    assert mg._lattice is None and mg._amg_meta is not None
     deep = _cloth_system(True, nx=20, ny=15, cg=400)
+    assert deep._lattice is not None
     for _ in range(4):
         mg.step()
         deep.step()
@@ -269,17 +276,15 @@ def test_cloth_in_kernel_multigrid_trajectory():
 
 def test_cloth_in_kernel_multigrid_matched_residual():
     """The matched-residual guarantee (VERDICT round-1 item): at 8 fixed
-    vcycle-PCG iterations the per-step final ADMM primal residual stays
-    within a few percent of an effectively exact global solve (1e-13
-    tolerance CG on the general path) — where the Jacobi budget needed
-    for the same match grows with grid diameter
-    (docs/PERFORMANCE.md 'Matched-residual solves')."""
+    V-cycle-PCG iterations (general AMG) the per-step final ADMM primal
+    residual stays within a few percent of an effectively exact global
+    solve (1e-13 tolerance CG on the general path) — where the Jacobi
+    budget needed for the same match grows with grid diameter."""
     kw = dict(nx=40, ny=30, iters=8)
     exact = _cloth_system(
         False, cg=None,
         settings_kw={"global_solver": "ell", "cg_tol": 1e-13,
-                     "cg_max_iters": 3000, "cg_backend": "xla",
-                     "collect_residuals": True},
+                     "cg_max_iters": 3000, "collect_residuals": True},
         **kw,
     )
     mg = _cloth_system(
@@ -288,7 +293,7 @@ def test_cloth_in_kernel_multigrid_matched_residual():
                      "collect_residuals": "primal"},
         **kw,
     )
-    assert mg._lattice is not None and mg._lattice._mg_meta_static is not None
+    assert mg._lattice is None and mg._amg_meta is not None
     worst = 0.0
     for _ in range(4):
         exact.step()
@@ -300,8 +305,8 @@ def test_cloth_in_kernel_multigrid_matched_residual():
 
 
 def test_cloth_in_kernel_dual_residuals():
-    """collect_residuals=True keeps the cloth fast path engaged and emits
-    BOTH residuals in-kernel; dual matches the general path
+    """collect_residuals=True keeps the cloth layout engaged and emits
+    BOTH residuals; dual matches the general path
     (triangle + bend + anchor contributions, iteration-0 baseline
     z_prev = D x_pre via the (A_hat - M) x / dt^2 identity)."""
 
@@ -314,8 +319,7 @@ def test_cloth_in_kernel_dual_residuals():
             collect_residuals=True,
         ))
         s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                                          backend="pallas"))
+        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
         s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
         top = np.flatnonzero(np.abs(mesh.vertices[:, 1] - 1.0) < 1e-9)
         s.add_force(StaticAnchor(top[:4]))
@@ -342,7 +346,7 @@ def test_cloth_in_kernel_dual_residuals():
 def test_cloth_symplane_fast_path():
     """The reference's actual cloth tessellation (make_sym_plane: grid
     corners + quad centers, 4 triangles per quad — the windyflag flag)
-    rides the whole-timestep cloth kernel since round 3: the
+    rides the grid-cloth layout: the
     interleaved-column renumbering (detect_symplane_numbering) puts all
     4 triangle stencils, 6 hinge stencils, 4 wind groups and A_hat on
     constant offsets. Full windyflag physics parity vs the general
@@ -357,8 +361,7 @@ def test_cloth_symplane_fast_path():
                             dtype=jnp.float64, global_solver="dia",
                             cg_fixed_iters=30, lattice_fast_path=fast))
         s.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                                          backend="pallas"))
+        s.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
         s.add_force(Bend(extract_hinges(mesh.faces), 20.0))
         s.add_force(StaticAnchor([0, 6]))
         s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
@@ -368,8 +371,8 @@ def test_cloth_symplane_fast_path():
 
     fast = build(True)
     assert fast._lattice is not None and fast._lattice.model == "cloth"
-    assert len(fast._lattice.groups) == 10   # 4 tri + 6 bend stencils
-    assert len(fast._lattice.wind_groups) == 4
+    assert len(fast._lattice.base.groups) == 10  # 4 tri + 6 bend stencils
+    assert len(fast._lattice.base.wind_groups) == 4
     ref = build(False)
     for _ in range(5):
         fast.step()
@@ -396,12 +399,12 @@ def test_detect_symplane_numbering_rejects():
 
 def test_cloth_symplane_editor_touched():
     """Editor-touched sym-plane sheets (renumbered vertices + reordered
-    faces — what exporters actually do) still ride the cloth kernel via
+    faces — what exporters actually do) still ride the cloth layout via
     the POSITION-based structural detector (detect_symplane_positions).
     The exact face-list-regeneration detector rejects them, and before
     round 4 they silently fell off a 6x cliff onto the dense path.
     (Within-face cyclic ROTATIONS additionally multiply the tri/hinge
-    stencil classes past the kernel's group budget and still fall back
+    stencil classes past the layout's group budget and still fall back
     gracefully — that is the structural qualifier working as designed.)"""
     from admm_elastic_tpu.core.cloth import detect_symplane_positions
     from admm_elastic_tpu.geometry import make_sym_plane
@@ -466,9 +469,9 @@ def test_cloth_kernel_state_stays_bounded():
     free-fall (x_pad = g t^2/2), and ungated dual updates let PHANTOM
     bases (validity mask 0, stencils wrapping across columns) integrate
     |Dx| per ADMM iteration — the strain-limit clamp breaks the prox
-    contraction — until the f32 SVD overflowed at |u| ~ 4.3e9 (step
-    ~1317 on chip). With the gates, pads never move and phantom duals
-    stay exactly zero."""
+    contraction — until the f32 SVD overflowed at |u| ~ 4.3e9 after about
+    1,300 steps. With the gates, pads never move and phantom duals stay
+    exactly zero."""
     from admm_elastic_tpu.geometry import make_sym_plane
 
     mesh = make_sym_plane(8, 6)
@@ -481,10 +484,10 @@ def test_cloth_kernel_state_stays_bounded():
     s.add_force(StaticAnchor([0, 6]))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
-    lat = s._lattice
-    assert lat is not None and lat.model == "cloth"
-    x_pad0 = np.asarray(lat.state["x"])[:, n:].copy()
-    lat.run(20)
+    assert s._lattice is not None and s._lattice.model == "cloth"
+    x_pad0 = np.asarray(s._lattice.base.state["x"])[:, n:].copy()
+    s._lattice.run(20)
+    lat = s._lattice.detach()
     st = lat.state
     # pads never move (gravity gated to real vertices)
     np.testing.assert_array_equal(np.asarray(st["x"])[:, n:], x_pad0)

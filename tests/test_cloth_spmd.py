@@ -1,10 +1,9 @@
 """Element-sharded cloth fast path (parallel/cloth_spmd.py).
 
 Validation chain:
-  cloth whole-timestep kernel (tests/test_cloth_fast.py, matched vs the
-  general path at 1e-9)
-    <- ShardedClothStepper D=2/4 full-depth trajectory parity (f64,
-       interpret-mode kernel on the single-device side)
+  D=1 grid-cloth layout (tests/test_cloth_fast.py, matched vs the
+  general path at 1e-12)
+    <- ShardedClothStepper D=2/4 full-depth trajectory parity vs D=1 (f64)
     <- residual parity, detach round-trip, measured-HLO audit
 """
 
@@ -61,10 +60,10 @@ def _build(wh=(10, 7), admm_iters=6, cg=15, wind=True, bend=True,
 @pytest.mark.parametrize("n_dev", [2, 4])
 def test_sharded_cloth_matches_kernel(n_dev):
     """Full-depth (wind + bend + anchors + gravity) trajectory parity vs
-    the single-device whole-timestep cloth kernel."""
+    the single-device (D=1) cloth layout."""
     _need_devices(n_dev)
     ref = _build()
-    spmd = ShardedClothStepper(_build()._lattice,
+    spmd = ShardedClothStepper(_build()._lattice.base,
                                jax.make_mesh((n_dev,), ("elem",)))
     for _ in range(5):
         ref._lattice.step()
@@ -79,7 +78,7 @@ def test_sharded_cloth_no_bend_no_wind():
     _need_devices(2)
     kw = dict(wind=False, bend=False, admm_iters=4, cg=10)
     ref = _build(**kw)
-    spmd = ShardedClothStepper(_build(**kw)._lattice,
+    spmd = ShardedClothStepper(_build(**kw)._lattice.base,
                                jax.make_mesh((2,), ("elem",)))
     for _ in range(4):
         ref._lattice.step()
@@ -88,15 +87,16 @@ def test_sharded_cloth_no_bend_no_wind():
 
 
 def test_sharded_cloth_residuals():
-    """In-kernel primal AND dual residual parity (psum-combined)."""
+    """Primal AND dual residual parity (psum-combined) vs D=1."""
     _need_devices(2)
     ref = _build(collect=True, admm_iters=6)
-    spmd = ShardedClothStepper(_build(collect=True, admm_iters=6)._lattice,
-                               jax.make_mesh((2,), ("elem",)))
+    spmd = ShardedClothStepper(
+        _build(collect=True, admm_iters=6)._lattice.base,
+        jax.make_mesh((2,), ("elem",)))
     ref._lattice.step()
     spmd.step()
-    rp_ref = np.asarray(ref._lattice.last_primal)[0]
-    rd_ref = np.asarray(ref._lattice.last_dual)[0]
+    rp_ref = np.asarray(ref._lattice.last_primal)
+    rd_ref = np.asarray(ref._lattice.last_dual)
     np.testing.assert_allclose(np.asarray(spmd.last_primal), rp_ref,
                                rtol=1e-6, atol=1e-10)
     np.testing.assert_allclose(np.asarray(spmd.last_dual), rd_ref,
@@ -106,17 +106,18 @@ def test_sharded_cloth_residuals():
 def test_sharded_cloth_detach_resume():
     _need_devices(2)
     a = _build(admm_iters=4, cg=10)._lattice
-    spmd = ShardedClothStepper(_build(admm_iters=4, cg=10)._lattice,
+    spmd = ShardedClothStepper(_build(admm_iters=4, cg=10)._lattice.base,
                                jax.make_mesh((2,), ("elem",)))
     for _ in range(3):
         a.step()
         spmd.step()
     base = spmd.detach()
-    np.testing.assert_array_equal(np.asarray(base.x), spmd.x)
+    one = ShardedClothStepper(base, jax.make_mesh((1,), ("elem",)))
+    np.testing.assert_array_equal(one.x, spmd.x)
     for _ in range(2):
         a.step()
-        base.step()
-    assert np.abs(np.asarray(base.x) - np.asarray(a.x)).max() < 1e-8
+        one.step()
+    assert np.abs(one.x - np.asarray(a.x)).max() < 1e-8
 
 
 def test_sharded_cloth_from_system_and_comm():
@@ -134,7 +135,7 @@ def test_sharded_cloth_from_system_and_comm():
     limit = max(spmd.Hf * 3 * 8 * 4, 4096)
     assert_no_fat_collectives(rep, limit)
     # comm volume is O(halo), independent of mesh size
-    big = ShardedClothStepper(_build(wh=(20, 7))._lattice, mesh2)
+    big = ShardedClothStepper(_build(wh=(20, 7))._lattice.base, mesh2)
     assert (big.comm_stats()["bytes_per_cg_iter"]
             == spmd.comm_stats()["bytes_per_cg_iter"])
 
@@ -143,10 +144,9 @@ def test_sharded_cloth_from_system_and_comm():
 def test_cloth_refresh_params_release():
     """VERDICT r4 #4 on the cloth family: release the pinned corners at
     runtime (weight -> 0 + recompute_weights + refresh_params); parity
-    vs the single-device kernel rebuilt from the identically-edited
-    system with carried state."""
+    vs the single-device layout of the identically-edited system, which
+    recompute_weights re-packs with carried state."""
     _need_devices(2)
-    from admm_elastic_tpu.core.cloth import cloth_from_system
     from admm_elastic_tpu.models import StaticAnchor as SA
 
     sysA = _build(admm_iters=4, cg=10)
@@ -167,14 +167,12 @@ def test_cloth_refresh_params_release():
 
     release(sysA)
     release(sysB)
-    latA2, _ = cloth_from_system(sysA)
-    latA2.state = latA.state
     spmd.refresh_params()
     x_before = spmd.x.copy()
     for _ in range(4):
-        latA2.step()
+        latA.step()
         spmd.step()
-    err = np.abs(np.asarray(latA2.x) - spmd.x).max()
+    err = np.abs(np.asarray(latA.x) - spmd.x).max()
     assert err < 1e-8, err
     # the released flag actually fell
     assert (spmd.x[:, 1].min() - x_before[:, 1].min()) < -1e-3
@@ -182,9 +180,9 @@ def test_cloth_refresh_params_release():
 
 def test_cloth_run_scan_window_matches_per_step():
     _need_devices(2)
-    a = ShardedClothStepper(_build(admm_iters=3, cg=8)._lattice,
+    a = ShardedClothStepper(_build(admm_iters=3, cg=8)._lattice.base,
                             jax.make_mesh((2,), ("elem",)))
-    b = ShardedClothStepper(_build(admm_iters=3, cg=8)._lattice,
+    b = ShardedClothStepper(_build(admm_iters=3, cg=8)._lattice.base,
                             jax.make_mesh((2,), ("elem",)))
     W = a.ROLLOUT_WINDOW
     a.run(W + 2)
@@ -270,7 +268,7 @@ def test_cloth_mg_solver_matched_quality_and_parity():
     dot-free Chebyshev outer, near-exact at 10 cycles, device-count
     independent, O(halo)+coarse-level-KBs traffic."""
     _need_devices(4)
-    ref = ShardedClothStepper(_build_grid(cg=400)._lattice,
+    ref = ShardedClothStepper(_build_grid(cg=400)._lattice.base,
                               jax.make_mesh((1,), ("elem",)))
     for _ in range(5):
         ref.step()
@@ -304,7 +302,7 @@ def test_cloth_cheb_solver_quality_and_no_allreduce():
     compiled multi-device step carries ZERO all-reduces — the CG
     variant pays 2 psums per iteration on the critical path."""
     _need_devices(4)
-    ref = ShardedClothStepper(_build_grid(cg=400)._lattice,
+    ref = ShardedClothStepper(_build_grid(cg=400)._lattice.base,
                               jax.make_mesh((1,), ("elem",)))
     for _ in range(5):
         ref.step()
@@ -345,7 +343,7 @@ def test_sharded_cloth_100k_parity_8dev():
 
     def mk():
         return _build(wh=(225, 225), admm_iters=4, cg=12,
-                      wind=False)._lattice
+                      wind=False)._lattice.base
 
     s1 = ShardedClothStepper(mk(), jax.make_mesh((1,), ("elem",)))
     s8 = ShardedClothStepper(mk(), jax.make_mesh((8,), ("elem",)))

@@ -35,7 +35,7 @@ def _need_devices(n):
 
 
 def _build(dims=(10, 5, 5), model="nh", admm_iters=6, cg=15, solver="ell",
-           backend="xla", grav_subset=False, springs=False, collect=False,
+           grav_subset=False, springs=False, collect=False,
            **kw):
     beam = make_beam_tets(*dims, **kw)
     n = beam.n_vertices
@@ -46,12 +46,10 @@ def _build(dims=(10, 5, 5), model="nh", admm_iters=6, cg=15, solver="ell",
     s.add_nodes(beam.vertices, np.full(n, 50.0 / n))
     s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
     if model == "arap":
-        s.add_force(LinearTetStrain(beam.tets, stiffness=1e4,
-                                    backend=backend))
+        s.add_force(LinearTetStrain(beam.tets, stiffness=1e4))
     else:
         s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5,
-                                    max_iters=5, model=model,
-                                    backend=backend))
+                                    max_iters=5, model=model))
     if springs:
         # a few long-range springs exercise multi-hop ghost exchange
         far = np.stack([np.arange(4), n - 1 - np.arange(4)], 1)
@@ -203,17 +201,17 @@ def test_cut_scaling():
     assert b_big <= b_small * 1.25, (b_small, b_big)
 
 
-def test_halo_pallas_forces():
-    """backend='pallas' forces (fused local kernels) run on the halo
+def test_halo_pallas_forces(nh_kernel):
+    """The Pallas NH local-step kernel (interpret mode) runs on the halo
     path too — the remapped indices gather from the local buffer."""
     _need_devices(2)
-    kw = dict(dims=(6, 4, 4), model="arap", admm_iters=3, cg=8)
-    ref = _build(backend="xla", **kw)
-    spmd = HaloSpmdSystem(_build(backend="pallas", **kw),
-                          jax.make_mesh((2,), ("elem",)))
-    for _ in range(2):
-        ref.step()
-        spmd.step()
+    kw = dict(dims=(6, 4, 4), admm_iters=3, cg=8)
+    with nh_kernel():
+        ref = _build(**kw)
+        spmd = HaloSpmdSystem(_build(**kw), jax.make_mesh((2,), ("elem",)))
+        for _ in range(2):
+            ref.step()
+            spmd.step()
     err = np.abs(np.asarray(ref.state["x"]) - spmd.x).max()
     assert err < 1e-7, err
 

@@ -1,66 +1,61 @@
-"""Lattice single-kernel timestep vs the general System path."""
+"""Whole-mesh layouts on structured tet lattices, through System.
+
+`lattice_fast_path=True` steps a beam lattice through the banded layout
+(core/banded.py), run by the XLA program of
+parallel/banded_spmd.ShardedBandedStepper on a one-device mesh; these
+tests pin it against the general System path, and the grid detection
+(core/lattice.detect_grid_numbering) that lets scrambled numberings
+qualify."""
 
 import jax.numpy as jnp
 import numpy as np
 
 from admm_elastic_tpu import Settings, System
-from admm_elastic_tpu.core.lattice import LatticeStepper
+from admm_elastic_tpu.core.lattice import detect_grid_numbering
 from admm_elastic_tpu.geometry import make_beam_tets
 from admm_elastic_tpu.models import ExplicitForce, HyperElasticTet, StaticAnchor
+from admm_elastic_tpu.parallel.banded_spmd import ShardedBandedStepper
+
+
+def _scrambled_beam(nx, ny, nz, size, seed=0, shift=(0.0, 0.0, 0.0)):
+    beam = make_beam_tets(nx, ny, nz, size=size)
+    verts = beam.vertices + np.asarray(shift)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(beam.n_vertices)  # new_id = perm_pos
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return verts[perm], inv[beam.tets]
 
 
 def test_group_tables_match_mesh():
-    """The per-group selector tables reproduce the per-element mesh data:
-    tet indices are base+offset and B is the group constant."""
-    from admm_elastic_tpu.models.tet import build_tet_basis
-    from admm_elastic_tpu.ops.pallas.lattice_step import (
-        _EVEN,
-        _ODD,
-        corner_offsets,
-        group_tables,
-    )
-
-    nx, ny, nz, size = 3, 2, 2, 0.25
-    beam = make_beam_tets(nx, ny, nz, size)
-    B, vol = build_tet_basis(beam.vertices, beam.tets)
-    offs = corner_offsets(ny + 1, nz + 1)
-    groups = group_tables(size)
-
-    e = 0
-    for i in range(nx):
-        for j in range(ny):
-            for k in range(nz):
-                base = (i * (ny + 1) + j) * (nz + 1) + k
-                parity = (i + j + k) % 2
-                pattern = _EVEN if parity == 0 else _ODD
-                for s, corners in enumerate(pattern):
-                    g = parity * 5 + s
-                    gc, gp, cp, gvol = groups[g]
-                    assert gc == corners and gp == parity
-                    expect_idx = [base + offs[c] for c in corners]
-                    assert list(beam.tets[e]) == expect_idx
-                    np.testing.assert_allclose(cp, B[e].T, atol=1e-12)
-                    np.testing.assert_allclose(gvol, vol[e], rtol=1e-12)
-                    e += 1
+    """The beam generator's numbering IS the canonical grid order: the
+    detector returns the identity, so the dia matvec and the banded layout
+    see the generator's tets unchanged."""
+    for dims in ((3, 2, 2), (5, 4, 3)):
+        beam = make_beam_tets(*dims, size=0.25)
+        cid = detect_grid_numbering(beam.vertices)
+        assert cid is not None
+        np.testing.assert_array_equal(cid, np.arange(beam.n_vertices))
 
 
-def _general_system(beam, masses, anchors, mu, lam, dt, iters, cg, backend):
+def _general_system(beam, masses, anchors, mu, lam, dt, iters, cg, fast):
     sys_ = System(Settings(timestep_s=dt, admm_iters=iters, verbose=0,
                            dtype=jnp.float64, global_solver="dia",
-                           cg_fixed_iters=cg))
+                           cg_fixed_iters=cg, lattice_fast_path=fast))
     sys_.add_nodes(beam.vertices, masses)
     sys_.add_force(StaticAnchor(anchors))
     sys_.add_force(HyperElasticTet(beam.tets, mu, lam, max_iters=5,
-                                   model="nh", backend=backend))
+                                   model="nh"))
     sys_.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert sys_.initialize()
     return sys_
 
 
-def test_lattice_stepper_matches_general_system():
-    """Whole-timestep kernel == general System (dia solver): exact against
-    the pallas backend (identical prox code), loose against the xla backend
-    (newton_minimize vs in-kernel Newton differ in line-search fp detail)."""
+def test_lattice_stepper_matches_general_system(nh_kernel):
+    """Banded layout (D=1) == general System (dia solver): tight against
+    the general path running the Pallas NH kernel (interpret mode — the
+    layout's own prox arithmetic), loose against the XLA local step
+    (its Newton line search differs in floating-point detail)."""
     nx, ny, nz, size = 4, 3, 2, 0.2
     mu = lam = 2e4
     dt, iters, cg = 0.04, 8, 40
@@ -69,25 +64,26 @@ def test_lattice_stepper_matches_general_system():
     masses = np.full(n, 2.0 / n)
     anchors = np.flatnonzero(beam.vertices[:, 0] < 1e-9)
 
-    sys_p = _general_system(beam, masses, anchors, mu, lam, dt, iters, cg,
-                            "pallas")
-    sys_x = _general_system(beam, masses, anchors, mu, lam, dt, iters, cg,
-                            "xla")
-    lat = LatticeStepper(nx, ny, nz, size, masses, mu, lam, anchors,
-                         dt=dt, admm_iters=iters, newton_iters=5,
-                         cg_iters=cg, dtype=jnp.float64)
+    args = (beam, masses, anchors, mu, lam, dt, iters, cg)
+    lat = _general_system(*args, fast=True)
+    assert isinstance(lat._lattice, ShardedBandedStepper)
+    sys_x = _general_system(*args, fast=False)
+    with nh_kernel():
+        sys_p = _general_system(*args, fast=False)
+        for _ in range(6):
+            sys_p.step()
+    xs_p = sys_p.x
 
     for s in range(6):
-        sys_p.step()
         sys_x.step()
         lat.step()
-        err = np.abs(np.asarray(sys_p.x) - np.asarray(lat.x)).max()
-        assert err < 1e-6, f"step {s}: max|dx| vs pallas = {err}"
-        errx = np.abs(np.asarray(sys_x.x) - np.asarray(lat.x)).max()
-        assert errx < 5e-3, f"step {s}: max|dx| vs xla = {errx}"
-    assert np.isfinite(np.asarray(lat.x)).all()
+    err = np.abs(xs_p - lat.x).max()
+    assert err < 1e-6, f"max|dx| vs kernel = {err}"
+    errx = np.abs(sys_x.x - lat.x).max()
+    assert errx < 5e-3, f"max|dx| vs xla = {errx}"
+    assert np.isfinite(lat.x).all()
     # the beam actually moved (sagged under gravity)
-    assert np.asarray(lat.x)[:, 1].min() < beam.vertices[:, 1].min() - 1e-4
+    assert lat.x[:, 1].min() < beam.vertices[:, 1].min() - 1e-4
 
 
 def test_lattice_rollout_matches_stepping():
@@ -98,45 +94,32 @@ def test_lattice_rollout_matches_stepping():
     anchors = np.flatnonzero(beam.vertices[:, 0] < 1e-9)
 
     def mk():
-        return LatticeStepper(nx, ny, nz, size, masses, 1e4, 1e4, anchors,
-                              dt=0.04, admm_iters=5, cg_iters=30,
-                              dtype=jnp.float64)
+        s = _general_system(beam, masses, anchors, 1e4, 1e4, 0.04, 5, 30,
+                            fast=True)
+        assert s._lattice is not None
+        return s
 
     a, b = mk(), mk()
     for _ in range(4):
         a.step()
     b.run(4)
-    np.testing.assert_allclose(np.asarray(a.x), np.asarray(b.x),
-                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(a.x, b.x, rtol=1e-12, atol=1e-12)
 
 
 def test_detect_lattice_scrambled_numbering():
-    """detect_lattice recovers (dims, size, origin, permutation) from a
-    randomly renumbered, translated beam; rejects non-lattice meshes."""
-    from admm_elastic_tpu.core.lattice import detect_lattice
-
-    beam = make_beam_tets(4, 3, 2, size=0.3)
-    verts = beam.vertices + np.array([1.5, -2.0, 0.25])
-    rng = np.random.default_rng(0)
-    perm = rng.permutation(beam.n_vertices)  # new_id = perm_pos
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(len(perm))
-    sverts = verts[perm]
-    stets = inv[beam.tets]
-    det = detect_lattice(sverts, stets)
-    assert det is not None
-    nx, ny, nz, size, origin, cid = det
-    assert (nx, ny, nz) == (4, 3, 2)
-    assert abs(size - 0.3) < 1e-9
-    np.testing.assert_allclose(origin, [1.5, -2.0, 0.25], atol=1e-9)
-    # cid maps back to canonical ids consistently with positions
-    canon = make_beam_tets(nx, ny, nz, size).vertices + origin
+    """detect_grid_numbering recovers the canonical grid ids from a
+    randomly renumbered, translated beam, and rejects jittered
+    (non-grid) positions."""
+    sverts, _ = _scrambled_beam(4, 3, 2, 0.3, shift=(1.5, -2.0, 0.25))
+    cid = detect_grid_numbering(sverts)
+    assert cid is not None
+    canon = make_beam_tets(4, 3, 2, size=0.3).vertices + np.array(
+        [1.5, -2.0, 0.25])
     np.testing.assert_allclose(canon[cid], sverts, atol=1e-9)
 
-    # a stretched (non-cubic) lattice must NOT qualify
-    bad = sverts.copy()
-    bad[:, 0] *= 1.7
-    assert detect_lattice(bad, stets) is None
+    rng = np.random.default_rng(1)
+    jit = sverts + 0.01 * rng.standard_normal(sverts.shape)
+    assert detect_grid_numbering(jit) is None
 
 
 def _lat_system(beam_or_verts, tets, masses, dt, iters, cg, fast,

@@ -1,14 +1,15 @@
-"""In-kernel geometric multigrid (core/mg.py + ops/pallas/banded_step.py).
+"""Multigrid-preconditioned global solves on structured beams.
 
 The reference solves the global step exactly (prefactored LDLT,
-/root/reference/deps/admm-elastic-sca/src/system/System.cpp:140). The
-banded whole-timestep kernel's Jacobi-PCG needs ~100 in-kernel iterations
-to match that at 100k-tet scale; with preconditioner='amg' it runs a
-two-coarse-level geometric V-cycle IN the kernel and matches at 8.
+System.cpp:140). Jacobi-PCG needs ~100 iterations to match that at
+100k-tet scale. The geometric hierarchy of core/mg.py (used by the sharded
+steppers' solver='mg') is checked against its numpy V-cycle, and
+preconditioner='amg' — the general path's aggregation AMG (core/amg.py),
+on every mesh and in every sparse mode — matches the exact solve at 8
+PCG iterations.
 """
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -99,15 +100,22 @@ def test_mg_planes_match_numpy_vcycle():
     assert np.abs(x[:n] - xs).max() <= 1e-8 * np.abs(xs).max()
 
 
+def _assert_general_amg(s):
+    """'amg' always takes the general path, whatever the layout request."""
+    assert s._lattice is None
+    assert s._amg_meta is not None
+
+
 def test_mg_kernel_matches_exact_solve():
-    """Banded kernel + in-kernel MG at 8 fixed iterations tracks the
-    exact-global-solve trajectory AND its per-iteration primal residuals;
-    plain Jacobi at the same budget does not."""
+    """dia + the AMG V-cycle at 8 fixed iterations tracks the
+    exact-global-solve trajectory AND its per-iteration primal
+    residuals; plain Jacobi at the same budget (banded layout) does
+    not."""
     mg = _beam_system(global_solver="dia", lattice_fast_path=True,
                       preconditioner="amg", cg_fixed_iters=8,
                       collect_residuals="primal")
-    assert mg._lattice is not None
-    assert mg._lattice._mg_meta_static is not None
+    _assert_general_amg(mg)
+    assert mg._solver_mode == "dia"
     jac = _beam_system(global_solver="dia", lattice_fast_path=True,
                        cg_fixed_iters=8, collect_residuals="primal")
     assert jac._lattice is not None
@@ -130,10 +138,11 @@ def test_mg_kernel_matches_exact_solve():
 
 
 def test_mg_kernel_rollout_matches_stepping():
-    a = _beam_system(global_solver="dia", lattice_fast_path=True,
-                     preconditioner="amg", cg_fixed_iters=8)
-    b = _beam_system(global_solver="dia", lattice_fast_path=True,
-                     preconditioner="amg", cg_fixed_iters=8)
+    a = _beam_system(global_solver="dia", preconditioner="amg",
+                     cg_fixed_iters=8)
+    b = _beam_system(global_solver="dia", preconditioner="amg",
+                     cg_fixed_iters=8)
+    _assert_general_amg(a)
     a.run(12)
     for _ in range(12):
         b.step()
@@ -165,47 +174,50 @@ def _delaunay_scene(**kw):
 def test_mg_non_grid_routes_to_in_kernel_algebraic_mg():
     """A non-grid scene with dia+amg never runs silently unmatched: the
     dia solver rejects the unstructured numbering, the mode falls back
-    to ell, and the IN-KERNEL algebraic multigrid engages on the uell
-    kernel (core/uamg.py)."""
+    to ell, and the general AMG engages."""
     s = _delaunay_scene(global_solver="dia")
     assert s._solver_mode == "ell"
-    assert s._lattice is not None
-    assert s._lattice._uamg_meta_static is not None
-    assert s._amg_meta is None
+    _assert_general_amg(s)
     s.step()
     assert np.isfinite(np.asarray(s.x)).all()
 
 
-def test_mg_uamg_unbuildable_falls_back_to_general_amg(monkeypatch):
-    """When the algebraic-MG structure does not fit its op budgets the
-    mode still never runs silently unmatched: the GENERAL-path AMG
-    takes the scene instead."""
-    import admm_elastic_tpu.core.uamg as uamg_mod
-
-    def boom(*a, **k):
-        raise ValueError("synthetic budget failure")
-
-    monkeypatch.setattr(uamg_mod, "build_uamg", boom)
-    s = _delaunay_scene(global_solver="ell")
-    assert s._lattice is None
-    assert s._amg_meta is not None         # general-path AMG engaged
+def test_mg_dia_amg_survives_weight_release():
+    """dia + AMG: a runtime anchor release (weight -> 0 +
+    recompute_weights) re-assembles the diagonals and refreshes the
+    hierarchy values with unchanged shapes; the body then falls."""
+    s = _beam_system(nx=6, ny=4, nz=4, global_solver="dia",
+                     preconditioner="amg", cg_fixed_iters=8)
+    _assert_general_amg(s)
     s.step()
-    assert np.isfinite(np.asarray(s.x)).all()
+    shapes = jax.tree_util.tree_map(lambda a: a.shape,
+                                    s.params["_solver"]["amg"])
+    anchor = s.forces[0]
+    s.set_force_param(anchor, "weight",
+                      np.zeros_like(np.asarray(s.params[anchor.name]
+                                               ["weight"])))
+    s.recompute_weights()
+    assert jax.tree_util.tree_map(lambda a: a.shape,
+                                  s.params["_solver"]["amg"]) == shapes
+    y0 = s.x[:, 1].min()
+    for _ in range(3):
+        s.step()
+    assert np.isfinite(s.x).all()
+    assert s.x[:, 1].min() < y0 - 1e-4
 
 
 def test_mg_grid_mesh_ell_routes_to_uamg():
     """A grid mesh forced into ell mode with lattice_fast_path + amg
-    routes onto the uell kernel WITH the in-kernel algebraic multigrid
-    (never the Jacobi-only budget)."""
+    takes the general AMG (never the Jacobi-only layout budget)."""
     s = _beam_system(global_solver="ell", lattice_fast_path=True,
                      preconditioner="amg", cg_fixed_iters=8)
-    assert s._lattice is not None
-    assert s._lattice._uamg_meta_static is not None
+    assert s._solver_mode == "ell"
+    _assert_general_amg(s)
 
 
 def test_mg_kernel_with_floor_collision():
-    """The V-cycle composes with the solve phase's in-kernel collision
-    projection (plinko-class scenes stay matched)."""
+    """The V-cycle composes with the collision projection (plinko-class
+    scenes stay matched)."""
     from admm_elastic_tpu.models import Collision, Floor
 
     def build(**kw):
@@ -225,8 +237,7 @@ def test_mg_kernel_with_floor_collision():
 
     mg = build(global_solver="dia", lattice_fast_path=True,
                preconditioner="amg", cg_fixed_iters=8)
-    assert mg._lattice is not None
-    assert mg._lattice._mg_meta_static is not None
+    _assert_general_amg(mg)
     exact = build(global_solver="ell", cg_tol=1e-13, cg_max_iters=4000)
     for _ in range(6):
         mg.step()

@@ -1,266 +1,274 @@
-"""Pallas fused local-step kernels, validated in interpreter mode on CPU
-against the jnp reference implementations (the kernels compile natively on
-TPU; interpret=True exercises identical math)."""
+"""Local-step kernels and their XLA references.
 
+The Pallas NH/StVK kernel (ops/pallas/nh_local.py, Triton route) runs
+here in interpret mode in float64 against the XLA form of the same step
+(HyperElasticTet.project); the `gpu` test compiles it for the card. The
+ARAP and triangle-strain local steps are XLA only: they are checked
+against NumPy SVD references, and the lane-parallel triangle body used by
+the grid-cloth layout (ops/lanes.tri_body) against the model.
+"""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from admm_elastic_tpu.ops.pallas.tet_local import (
-    BLOCK,
-    arap_local_step,
-    arap_local_step_reference,
-)
+from admm_elastic_tpu.models.tet import HyperElasticTet, LinearTetStrain
+from admm_elastic_tpu.ops.pallas import nh_local
 
 
-def _data(E, seed=0, inverted=False):
+def _deformations(E, seed, inverted=3, collapsed=0):
     rng = np.random.default_rng(seed)
-    dx9 = rng.normal(size=(9, E)).astype(np.float32)
-    if inverted:
-        # make a batch of inverted deformation gradients
-        F = dx9.T.reshape(E, 3, 3)
-        F[: E // 2] = F[: E // 2] @ np.diag([1.0, 1.0, -1.0])
-        dx9 = F.reshape(E, 9).T.copy()
-    u9 = (rng.normal(size=(9, E)) * 0.1).astype(np.float32)
-    w2 = rng.uniform(0.5, 2.0, E).astype(np.float32)
-    k = rng.uniform(0.5, 2.0, E).astype(np.float32)
-    return (jnp.asarray(a) for a in (dx9, u9, w2, k))
+    F = rng.normal(size=(E, 3, 3))
+    F[: E // inverted] = F[: E // inverted] @ np.diag([1.0, 1.0, -1.0])
+    if collapsed:
+        F[E // inverted: E // inverted + collapsed] *= 1e-4
+    return F
 
 
-def test_arap_kernel_matches_reference():
-    dx9, u9, w2, k = _data(2 * BLOCK)
-    z1, un1 = arap_local_step(dx9, u9, w2, k, interpret=True)
-    z2, un2 = arap_local_step_reference(dx9, u9, w2, k)
-    assert float(jnp.abs(z1 - z2).max()) < 1e-4
-    assert float(jnp.abs(un1 - un2).max()) < 1e-4
+def _separated(F, gap=1e-2):
+    svs = np.linalg.svd(F, compute_uv=False)
+    return np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2]) > gap
 
 
-def test_arap_kernel_inverted_elements():
-    dx9, u9, w2, k = _data(BLOCK, seed=1, inverted=True)
-    z1, un1 = arap_local_step(dx9, u9, w2, k, interpret=True)
-    z2, un2 = arap_local_step_reference(dx9, u9, w2, k)
-    assert float(jnp.abs(z1 - z2).max()) < 1e-4
-    assert bool(jnp.isfinite(z1).all())
-
-
-def test_arap_kernel_degenerate():
-    z = jnp.zeros((9, BLOCK), jnp.float32)
-    ones = jnp.ones(BLOCK, jnp.float32)
-    out_z, out_u = arap_local_step(z, z, ones, ones, interpret=True)
-    assert bool(jnp.isfinite(out_z).all() and jnp.isfinite(out_u).all())
-
-
-def test_nh_kernel_matches_model():
-    """Fused NH kernel vs the model's vmapped path: sigma* agrees everywhere;
-    z agrees on elements with well-separated singular values (degenerate
-    elements have an ambiguous SVD basis — both answers are valid)."""
-    import jax
-
-    from admm_elastic_tpu.models.tet import HyperElasticTet
-    from admm_elastic_tpu.ops.pallas.nh_local import nh_local_step
-
-    rng = np.random.default_rng(0)
-    E = BLOCK
-    F = rng.normal(size=(E, 3, 3)).astype(np.float32)
-    F[: E // 3] = F[: E // 3] @ np.diag([1, 1, -1]).astype(np.float32)
-    F[E // 3 : E // 3 + 10] *= 1e-4  # collapsed elements
-
-    dx9 = jnp.asarray(F.reshape(E, 9).T)
-    u9 = jnp.zeros_like(dx9)
-    warm = jnp.ones((3, E), jnp.float32)
-    mu = jnp.full(E, 1e5, jnp.float32)
-    z9, un9, w9 = nh_local_step(dx9, u9, warm, mu, mu, mu, iters=5,
-                                interpret=True)
-
-    het = HyperElasticTet(np.zeros((E, 4), np.int32), 1e5, 1e5, 5, "nh")
-    params = {"mu": mu, "lam": mu, "k": mu, "weight": jnp.ones(E)}
+def _kernel_vs_model(F, mu_v, lam_v, model, seed=0):
+    """Unfused kernel (interpret) and the XLA project on the same inputs:
+    returns (z_k, z_x, sigma_k, sigma_x, u_k, u_x) in F layout."""
+    E = len(F)
+    rng = np.random.default_rng(seed)
     Dx = jnp.asarray(np.swapaxes(F, 1, 2))
-    z_ref, st = het.project(Dx, jnp.zeros_like(Dx), params,
-                            {"sigma": jnp.ones((E, 3), jnp.float32)})
-
-    zF_ref = np.asarray(jnp.swapaxes(z_ref, 1, 2))
-    z_k = np.asarray(z9).T.reshape(E, 3, 3)
-    svs = np.linalg.svd(F.astype(np.float64), compute_uv=False)
-    gaps = np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2])
-    sep = gaps > 1e-2
-    assert np.abs(z_k[sep] - zF_ref[sep]).max() < 5e-3
-    assert np.abs(np.asarray(w9).T - np.asarray(st["sigma"])).max() < 1e-2
-    assert np.isfinite(z_k).all() and np.isfinite(np.asarray(un9)).all()
-    assert np.all(np.asarray(w9) > 0)
-
-
-def test_stvk_kernel_matches_model():
-    from admm_elastic_tpu.models.tet import HyperElasticTet
-    from admm_elastic_tpu.ops.pallas.nh_local import nh_local_step
-
-    rng = np.random.default_rng(2)
-    E = BLOCK
-    F = rng.normal(size=(E, 3, 3)).astype(np.float32)
-    dx9 = jnp.asarray(F.reshape(E, 9).T)
-    warm = jnp.ones((3, E), jnp.float32)
-    mu = jnp.full(E, 100.0, jnp.float32)
-    z9, _, w9 = nh_local_step(dx9, jnp.zeros_like(dx9), warm, mu, mu, mu,
-                              iters=5, interpret=True, model="stvk")
-
-    het = HyperElasticTet(np.zeros((E, 4), np.int32), 100.0, 100.0, 5, "stvk")
-    params = {"mu": mu, "lam": mu, "k": mu, "weight": jnp.ones(E)}
-    Dx = jnp.asarray(np.swapaxes(F, 1, 2))
-    z_ref, st = het.project(Dx, jnp.zeros_like(Dx), params,
-                            {"sigma": jnp.ones((E, 3), jnp.float32)})
-    zF_ref = np.asarray(jnp.swapaxes(z_ref, 1, 2))
-    z_k = np.asarray(z9).T.reshape(E, 3, 3)
-    svs = np.linalg.svd(F.astype(np.float64), compute_uv=False)
-    gaps = np.minimum(svs[:, 0] - svs[:, 1], svs[:, 1] - svs[:, 2])
-    sep = gaps > 1e-2
-    assert np.abs(z_k[sep] - zF_ref[sep]).max() < 5e-3
-    assert np.abs(np.asarray(w9).T - np.asarray(st["sigma"])).max() < 5e-3
+    u = jnp.asarray(rng.normal(size=(E, 3, 3)) * 0.05)
+    sig = jnp.ones((E, 3))
+    mu = jnp.full(E, mu_v)
+    lam = jnp.full(E, lam_v)
+    k = jnp.minimum(mu, lam)
+    z_k, u_k, s_k = nh_local.nh_local_step(
+        Dx, u, sig, mu, lam, k, iters=5, model=model, interpret=True)
+    het = HyperElasticTet(np.zeros((E, 4), np.int32), mu_v, lam_v, 5, model)
+    params = {"mu": mu, "lam": lam, "k": k, "weight": jnp.ones(E)}
+    z_x, st = het.project(Dx, u, params, {"sigma": sig})
+    return (np.asarray(z_k), np.asarray(z_x), np.asarray(s_k),
+            np.asarray(st["sigma"]), np.asarray(u_k),
+            np.asarray(u + Dx - z_x))
 
 
-def test_pallas_backend_end_to_end_matches_xla():
-    """Full System stepping with backend='pallas' (interpreted on CPU) stays
-    close to the XLA path for both ARAP and NH tets."""
+@pytest.mark.parametrize("model,mu,lam", [
+    ("nh", 1e5, 1e5),     # the benchmark material
+    ("nh", 1e4, 4e4),     # lam != mu: the +lam*inv^2 Hessian diagonal
+    ("stvk", 100.0, 100.0),
+])
+def test_nh_kernel_matches_model(model, mu, lam):
+    """Kernel vs XLA form in f64, E not a multiple of BLOCK: sigma* agrees
+    everywhere; z agrees where the singular values are separated (a
+    degenerate element's SVD basis is ambiguous — both answers valid).
+    The two forms use different SVD algorithms (Jacobi sweeps vs the
+    closed-form eigensolver) and stop Newton after 5 iterations, so a
+    backtracking step can land differently at the 1e-9 level."""
+    E = 2 * nh_local.BLOCK + 37
+    F = _deformations(E, seed=7)
+    z_k, z_x, s_k, s_x, u_k, u_x = _kernel_vs_model(F, mu, lam, model)
+    sep = _separated(F)
+    np.testing.assert_allclose(s_k, s_x, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(z_k[sep], z_x[sep], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(u_k[sep], u_x[sep], rtol=1e-6, atol=1e-7)
+    assert np.all(s_k > 0)
+
+
+def test_nh_kernel_degenerate_and_collapsed():
+    """Zero and collapsed deformation gradients stay finite with a
+    positive sigma* (warm-start guards, TetForce.cpp:339-347)."""
+    E = nh_local.BLOCK
+    F = _deformations(E, seed=1, collapsed=20)
+    F[-10:] = 0.0
+    z_k, _, s_k, s_x, u_k, _ = _kernel_vs_model(F, 1e5, 1e5, "nh")
+    assert np.isfinite(z_k).all() and np.isfinite(u_k).all()
+    assert np.all(s_k > 0)
+    np.testing.assert_allclose(s_k, s_x, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("emit_z", [False, True])
+def test_nh_kernel_fused_matches_unfused(emit_z):
+    """The fused variant (selector apply + local step + RHS rows, one
+    kernel) reproduces compute_Dx + the XLA local step + rhs_contribution
+    on a real mesh; the element count is not a multiple of BLOCK.
+    Tolerances as in test_nh_kernel_matches_model (two SVD algorithms)."""
+    from admm_elastic_tpu.geometry import make_beam_tets
+
+    beam = make_beam_tets(5, 4, 3)  # 300 tets
+    E = beam.n_tets
+    assert E % nh_local.BLOCK
+    f = HyperElasticTet(beam.tets, mu=1e4, lam=4e4, max_iters=5)
+    params, state = f.build(beam.vertices, np.ones(beam.n_vertices), 0.04)
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(beam.vertices
+                    + 0.02 * rng.normal(size=beam.vertices.shape))
+    u = jnp.asarray(rng.normal(size=(E, 3, 3)) * 0.01)
+    sig = jnp.asarray(state["sigma"])
+
+    out = nh_local.nh_local_step_fused(
+        x[params["indices"]], u, sig, params["coeff"], params["mu"],
+        params["lam"], params["k"], params["weight"] ** 2, iters=5,
+        model="nh", emit_z=emit_z, interpret=True)
+    z_ref, u_ref, st = f.project_with_dual(
+        f.compute_Dx(params, x), u, params, {"sigma": sig})
+    np.testing.assert_allclose(out[0], z_ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(out[1], u_ref, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(out[2], st["sigma"], rtol=1e-7, atol=1e-9)
+    rows = f.rhs_contribution6(params, z_ref, u_ref)
+    scale = np.abs(rows).max()
+    np.testing.assert_allclose(out[3].reshape(-1, 3), rows[:, :3],
+                               rtol=1e-6, atol=1e-7 * scale)
+    assert len(out) == (5 if emit_z else 4)
+    if emit_z:
+        np.testing.assert_allclose(out[4].reshape(-1, 3), rows[:, 3:],
+                                   rtol=1e-6, atol=1e-7 * scale)
+
+
+def test_nh_kernel_end_to_end_matches_xla(nh_kernel):
+    """Full System stepping with the kernel (interpret mode) stays on the
+    XLA trajectory in ell and dia modes (the fused local+RHS route) and in
+    cg mode (the unfused project_with_dual route)."""
     from admm_elastic_tpu import Settings, System
     from admm_elastic_tpu.geometry import make_beam_tets
-    from admm_elastic_tpu.models import (
-        ExplicitForce,
-        HyperElasticTet,
-        LinearTetStrain,
-        StaticAnchor,
-    )
+    from admm_elastic_tpu.models import ExplicitForce, StaticAnchor
 
     beam = make_beam_tets(3, 2, 2)
 
-    def run(cls, kwargs, backend, solver="ell"):
+    def run(solver):
         sys = System(Settings(timestep_s=0.04, admm_iters=6, verbose=0,
-                              dtype=jnp.float32, global_solver=solver,
+                              dtype=jnp.float64, global_solver=solver,
                               cg_fixed_iters=20))
         n = beam.n_vertices
         sys.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         sys.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
-        sys.add_force(cls(beam.tets, backend=backend, **kwargs))
+        sys.add_force(HyperElasticTet(beam.tets, mu=1e4, lam=1e4,
+                                      max_iters=5, model="nh"))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert sys.initialize()
         for _ in range(4):
             sys.step()
         return sys.x
 
-    for cls, kwargs in [
-        (LinearTetStrain, dict(stiffness=1e4)),
-        (HyperElasticTet, dict(mu=1e4, lam=1e4, max_iters=5, model="nh")),
-    ]:
-        a = run(cls, kwargs, "xla")
-        b = run(cls, kwargs, "pallas")
-        assert np.abs(a - b).max() < 5e-4, f"{cls.__name__} diverged"
-
-    # the dia mode routes pallas tet forces through the fully fused
-    # local+RHS kernels (fused_local_rhs); must agree with the xla path too
-    for cls, kwargs in [
-        (HyperElasticTet, dict(mu=1e4, lam=1e4, max_iters=5, model="nh")),
-        (LinearTetStrain, dict(stiffness=1e4)),
-    ]:
-        a = run(cls, kwargs, "xla", solver="dia")
-        b = run(cls, kwargs, "pallas", solver="dia")
-        assert np.abs(a - b).max() < 5e-4, (
-            f"fused local+RHS kernel diverged for {cls.__name__}"
-        )
+    for solver in ("ell", "dia", "cg"):
+        a = run(solver)
+        with nh_kernel():
+            b = run(solver)
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-9, err_msg=solver)
 
 
-def test_nh_kernel_lam_ne_mu():
-    """Regression for the missing +lam*inv^2 Hessian diagonal term: with
-    lam != mu (ordinary Poisson ratios, e.g. lam = 4 mu) the kernel's
-    Newton must converge to the same sigma* as the validated closed-form
-    model path (models/tet.py:nh_grad_hess)."""
-    from admm_elastic_tpu.models.tet import HyperElasticTet
-    from admm_elastic_tpu.ops.pallas.nh_local import nh_local_step
+def test_kernel_selection_follows_platform():
+    """The kernel is chosen from the platform, never by a flag: off a GPU
+    the XLA form runs and no fused route is offered."""
+    f = HyperElasticTet(np.zeros((1, 4), np.int32), 1.0, 1.0)
+    on_gpu = jax.default_backend() == "gpu"
+    assert f.uses_kernel() == on_gpu
+    assert f.supports_fused_local_rhs == on_gpu
 
-    rng = np.random.default_rng(7)
-    E = BLOCK
-    F = rng.normal(size=(E, 3, 3)).astype(np.float32)
-    F[: E // 4] = F[: E // 4] @ np.diag([1, 1, -1]).astype(np.float32)
 
-    mu_v, lam_v = 1e4, 4e4
-    dx9 = jnp.asarray(F.reshape(E, 9).T)
-    warm = jnp.ones((3, E), jnp.float32)
-    mu = jnp.full(E, mu_v, jnp.float32)
-    lam = jnp.full(E, lam_v, jnp.float32)
-    k = jnp.full(E, mu_v, jnp.float32)  # k = min(mu, lam)
-    z9, _, w9 = nh_local_step(dx9, jnp.zeros_like(dx9), warm, mu, lam, k,
-                              iters=5, interpret=True)
-
-    het = HyperElasticTet(np.zeros((E, 4), np.int32), mu_v, lam_v, 5, "nh")
-    params = {"mu": mu, "lam": lam, "k": k, "weight": jnp.ones(E)}
+@pytest.mark.gpu
+def test_nh_kernel_compiled_on_gpu(gpu):
+    """The kernel as compiled for the card (no interpret mode) against the
+    XLA form at full f32 precision, 10,000 elements."""
+    E = 10_000
+    F = _deformations(E, seed=2).astype(np.float32)
     Dx = jnp.asarray(np.swapaxes(F, 1, 2))
-    _, st = het.project(Dx, jnp.zeros_like(Dx), params,
-                        {"sigma": jnp.ones((E, 3), jnp.float32)})
-    err = np.abs(np.asarray(w9).T - np.asarray(st["sigma"])).max()
-    assert err < 1e-2, f"sigma* mismatch {err} with lam=4mu"
+    u = jnp.zeros_like(Dx)
+    sig = jnp.ones((E, 3), jnp.float32)
+    mu = jnp.full(E, 1e5, jnp.float32)
+    z_k, _, s_k = nh_local.nh_local_step(Dx, u, sig, mu, mu, mu, iters=5)
+    het = HyperElasticTet(np.zeros((E, 4), np.int32), 1e5, 1e5, 5, "nh")
+    params = {"mu": mu, "lam": mu, "k": mu, "weight": jnp.ones(E)}
+    with jax.default_matmul_precision("highest"):
+        z_x, st = jax.jit(het.project)(Dx, u, params, {"sigma": sig})
+    sep = _separated(F.astype(np.float64))
+    # f32 round-off through 6 Jacobi sweeps and 5 Newton steps
+    np.testing.assert_allclose(np.asarray(s_k), np.asarray(st["sigma"]),
+                               rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(z_k)[sep], np.asarray(z_x)[sep],
+                               rtol=2e-3, atol=2e-3)
 
 
-def test_tri_kernel_matches_model():
-    """Fused triangle-strain kernel vs the vmapped XLA path: z agrees on
-    elements with separated singular values; strain limiting included."""
+def _np_polar(F):
+    U, _, Vt = np.linalg.svd(F)
+    R = U @ Vt
+    flip = np.linalg.det(R) < 0
+    U[flip, :, 2] *= -1
+    return U @ Vt
+
+
+@pytest.mark.parametrize("inverted", [False, True])
+def test_arap_xla_matches_numpy_polar(inverted):
+    """LinearTetStrain's local step: z = (k R + w^2 F)/(w^2 + k) with R the
+    closest proper rotation, against NumPy's SVD polar factor (inverted
+    elements included)."""
+    E = 512
+    F = _deformations(E, seed=4, inverted=2 if inverted else E + 1)
+    rng = np.random.default_rng(5)
+    w2 = rng.uniform(0.5, 2.0, E)
+    k = rng.uniform(0.5, 2.0, E)
+    f = LinearTetStrain(np.zeros((E, 4), np.int32), 1.0)
+    params = {"weight": jnp.asarray(np.sqrt(w2)), "k": jnp.asarray(k)}
+    Dx = jnp.asarray(np.swapaxes(F, 1, 2))
+    z, _ = f.project(Dx, jnp.zeros_like(Dx), params, {})
+    zF = np.swapaxes(np.asarray(z), 1, 2)
+    ref = ((k[:, None, None] * _np_polar(F) + w2[:, None, None] * F)
+           / (w2 + k)[:, None, None])
+    sep = _separated(F)
+    np.testing.assert_allclose(zF[sep], ref[sep], rtol=1e-8, atol=1e-9)
+
+
+def test_arap_xla_degenerate():
+    f = LinearTetStrain(np.zeros((64, 4), np.int32), 1.0)
+    Dx = jnp.zeros((64, 3, 3))
+    params = {"weight": jnp.ones(64), "k": jnp.ones(64)}
+    z, _ = f.project(Dx, Dx, params, {})
+    assert np.isfinite(np.asarray(z)).all()
+
+
+def _tri_inputs(E, seed):
     from admm_elastic_tpu.models.triangle import LimitedTriangleStrain
 
-    rng = np.random.default_rng(3)
-    E = BLOCK
-    faces = np.zeros((E, 3), np.int32)
-    F = rng.normal(size=(E, 3, 2)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(E, 3, 2))
     F[: E // 8] *= 1e-5  # collapsed
-    Dx = jnp.asarray(np.swapaxes(F, 1, 2))  # canonical (E,2,3)
+    f = LimitedTriangleStrain(np.zeros((E, 3), np.int32), 100.0, 0.95, 1.05)
+    params = {
+        "weight": jnp.full(E, 2.0), "k": jnp.full(E, 3.0),
+        "limit_min": jnp.full(E, 0.95), "limit_max": jnp.full(E, 1.05),
+    }
+    Dx = jnp.asarray(np.swapaxes(F, 1, 2))
+    z, _ = f.project(Dx, jnp.zeros_like(Dx), params, {})
+    return F, np.swapaxes(np.asarray(z), 1, 2)
 
-    def run(backend):
-        f = LimitedTriangleStrain(faces, 100.0, 0.95, 1.05, backend=backend)
-        params = {
-            "weight": jnp.full(E, 2.0, jnp.float32),
-            "k": jnp.full(E, 3.0, jnp.float32),
-            "limit_min": jnp.full(E, 0.95, jnp.float32),
-            "limit_max": jnp.full(E, 1.05, jnp.float32),
-            "indices": jnp.asarray(faces),
-            "coeff": jnp.zeros((E, 2, 3), jnp.float32),
-        }
-        z, _ = f.project(Dx, jnp.zeros_like(Dx), params, {})
-        return np.asarray(z)
 
-    z_k = run("pallas")
-    z_x = run("xla")
-    svs = np.linalg.svd(F.astype(np.float64), compute_uv=False)
+def test_tri_xla_matches_numpy():
+    """Triangle strain: in-plane rotation U V^T mixed with F, column norms
+    clamped into [limit_min, limit_max] (TriangleForce.cpp:79-113)."""
+    E = 512
+    F, zF = _tri_inputs(E, seed=3)
+    U, _, Vt = np.linalg.svd(F, full_matrices=False)
+    ref = (3.0 * (U @ Vt) + 4.0 * F) / 7.0
+    l = np.linalg.norm(ref, axis=1)
+    safe = np.maximum(l, 1e-6)
+    scale = np.where(l < 0.95, 0.95 / safe, np.where(l > 1.05, 1.05 / safe, 1))
+    ref = ref * scale[:, None, :]
+    svs = np.linalg.svd(F, compute_uv=False)
     sep = (svs[:, 0] - svs[:, 1]) > 1e-2
-    assert np.abs(z_k[sep] - z_x[sep]).max() < 5e-3
-    assert np.isfinite(z_k).all()
+    np.testing.assert_allclose(zF[sep], ref[sep], rtol=1e-8, atol=1e-9)
+    assert np.isfinite(zF).all()
 
 
-def test_tri_fused_contrib_matches_unfused():
-    """The in-kernel selector apply + RHS contribution of the fused cloth
-    kernel reproduces compute_Dx + rhs_contribution on a real mesh."""
-    import jax
+def test_tri_lanes_body_matches_model():
+    """ops/lanes.tri_body (the grid-cloth layout's projection on planes)
+    reproduces LimitedTriangleStrain.project."""
+    from admm_elastic_tpu.ops.lanes import tri_body
 
-    from admm_elastic_tpu.geometry import make_sym_plane
-    from admm_elastic_tpu.models.triangle import (
-        LimitedTriangleStrain,
-        build_tri_basis,
-    )
-
-    mesh = make_sym_plane(8, 6)
-    E = len(mesh.faces)
-    f = LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                              backend="pallas")
-    params, state = f.build(mesh.vertices, np.full(mesh.n_vertices, 1.0), 0.04)
-    params = {k: jnp.asarray(np.asarray(v), jnp.float64)
-              if np.asarray(v).dtype.kind == "f" else jnp.asarray(v)
-              for k, v in params.items()}
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(mesh.vertices + 0.1 * rng.normal(size=(mesh.n_vertices, 3)))
-    u = jnp.asarray(rng.normal(size=(6, f._padded_E())) * 0.05)
-
-    z6, u6, _, flat = f.fused_local_rhs(params, x, u, state, with_z=True)
-    assert flat.shape == (E * 3, 6)
-
-    # unfused reference: Dx planes + kernel-free projection + contributions
-    Dx = f.compute_Dx(params, x)
-    z_ref, u_ref, _ = f.project_with_dual(Dx, u, params, state)
-    np.testing.assert_allclose(np.asarray(z6), np.asarray(z_ref), atol=1e-8)
-    np.testing.assert_allclose(np.asarray(u6), np.asarray(u_ref), atol=1e-8)
-    czu = f.rhs_contribution(params, z_ref, u_ref)
-    np.testing.assert_allclose(np.asarray(flat[:, :3]), np.asarray(czu),
-                               atol=1e-8)
-    cz6 = f.rhs_contribution6(params, z_ref, u_ref)
-    np.testing.assert_allclose(np.asarray(flat), np.asarray(cz6), atol=1e-8)
+    E = 512
+    F, zF = _tri_inputs(E, seed=6)
+    planes = [jnp.asarray(F[:, a, b]) for a in range(3) for b in range(2)]
+    z = tri_body(planes, 4.0, 3.0, 0.95, 1.05, True)
+    zl = np.stack([np.asarray(p) for p in z], 1).reshape(E, 3, 2)
+    svs = np.linalg.svd(F, compute_uv=False)
+    sep = (svs[:, 0] - svs[:, 1]) > 1e-2
+    np.testing.assert_allclose(zl[sep], zF[sep], rtol=1e-8, atol=1e-9)

@@ -1,4 +1,4 @@
-"""Trajectory parity: the TPU framework vs a direct numpy transcription of
+"""Trajectory parity: the JAX framework vs a direct numpy transcription of
 the reference algorithm (tests/reference_impl.py) in float64.
 
 These tests pin down exact algorithmic equivalence for the analytic-prox

@@ -196,12 +196,13 @@ def test_scenario_sweep_with_precomputed_solver():
             )
 
 
-def test_scenario_sweep_pallas_backend():
-    """Scenario vmap over the fused pallas local+RHS kernels (ell mode with
-    per-scenario re-assembled matrices) matches the xla/cg path."""
+def test_scenario_sweep_pallas_backend(nh_kernel):
+    """Scenario vmap over the fused Pallas local+RHS kernel (interpret
+    mode; ell mode with per-scenario re-assembled matrices) matches the
+    XLA local step on the cg path."""
     from admm_elastic_tpu.models import HyperElasticTet
 
-    def build(backend, mode):
+    def build(mode):
         beam = make_beam_tets(4, 2, 2)
         ss = System(
             Settings(timestep_s=0.04, admm_iters=6, verbose=0,
@@ -212,15 +213,15 @@ def test_scenario_sweep_pallas_backend():
         ss.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         ss.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         ss.add_force(HyperElasticTet(beam.tets, 2e4, 2e4, max_iters=5,
-                                     model="nh", backend=backend))
+                                     model="nh"))
         ss.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         ss.initialize()
         return ss
 
     mus = np.array([1e4, 5e4])
 
-    def run(backend, mode):
-        ss = build(backend, mode)
+    def run(mode):
+        ss = build(mode)
         name = ss._force_list[1].name
         E = ss._force_list[1].n_elements
         vols = (np.asarray(ss.params[name]["weight"]) ** 2) / 2e4
@@ -237,8 +238,9 @@ def test_scenario_sweep_pallas_backend():
             bstate, _ = step(bstate, bparams)
         return np.asarray(bstate["x"])
 
-    a = run("xla", "cg")
-    b = run("pallas", "ell")
+    a = run("cg")
+    with nh_kernel():
+        b = run("ell")
     np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
 
 
@@ -278,11 +280,9 @@ def _spmd_pair(beam, admm_iters=4, cg=20, forces="nh", n_dev=8):
         s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         if forces == "nh":
             s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5,
-                                        max_iters=5, model="nh",
-                                        backend="pallas"))
-        else:  # mixed: ARAP pallas + moving anchor + floor collision
-            s.add_force(LinearTetStrain(beam.tets, stiffness=1e5,
-                                        backend="pallas"))
+                                        max_iters=5, model="nh"))
+        else:  # mixed: ARAP + moving anchor + floor collision
+            s.add_force(LinearTetStrain(beam.tets, stiffness=1e5))
             tip = int(np.argmax(beam.vertices[:, 0]))
             s.add_force(MovingAnchor([tip], weight=500.0))
             s.add_force(Collision([Floor(center=(0, -0.5, 0))],
@@ -415,7 +415,7 @@ def test_spmd_accepts_dia_mode():
         s.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         s.add_force(HyperElasticTet(beam.tets, mu=1e4, lam=1e4, max_iters=5,
-                                    model="nh", backend="pallas"))
+                                    model="nh"))
         s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert s.initialize()
         return s
@@ -451,8 +451,7 @@ def test_spmd_residual_collection():
         s.add_nodes(beam.vertices, np.full(n, 50.0 / n))
         s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         s.add_force(HyperElasticTet(beam.tets, mu=1e5, lam=1e5,
-                                    max_iters=5, model="nh",
-                                    backend="pallas"))
+                                    max_iters=5, model="nh"))
         s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert s.initialize()
         return s

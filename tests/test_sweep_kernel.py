@@ -1,10 +1,11 @@
-"""Scenario-sweep whole-timestep kernel (core/sweep.py): N stiffness
-variants of one topology in ONE pallas_call, vs per-scenario reference
+"""Scenario sweeps: N stiffness variants of one topology stepped as one
+vmapped program (parallel/scenarios.vmap_step), vs per-scenario reference
 runs through the general System path.
 
 Matches the semantics of parallel/scenarios.batch_params sweeps (the
 BASELINE '64 parallel armadillo drops' workload): sweeping 'weight'
-changes both the local prox mix and the global matrix."""
+changes both the local prox mix and the global matrix, which batch_params
+re-assembles per scenario."""
 
 import os
 import sys
@@ -16,13 +17,17 @@ import numpy as np
 import pytest
 
 from admm_elastic_tpu import Settings, System
-from admm_elastic_tpu.core.sweep import SweepStepper, sweep_from_system
 from admm_elastic_tpu.geometry import make_beam_tets
 from admm_elastic_tpu.models import (
     ExplicitForce,
     HyperElasticTet,
     LinearTetStrain,
     StaticAnchor,
+)
+from admm_elastic_tpu.parallel.scenarios import (
+    batch_params,
+    batch_state,
+    vmap_step,
 )
 
 F64 = jnp.float64
@@ -38,19 +43,18 @@ def jittered_beam(nx=4, ny=3, nz=3, seed=0, jitter=0.08):
 
 
 def build_system(mesh, *, solver, mu, lam, model="nh", fast=False,
-                 anchor_w=1000.0, admm=6):
+                 anchor_w=1000.0, admm=6, collect=False):
     n = mesh.n_vertices
     s = System(Settings(timestep_s=0.04, admm_iters=admm, verbose=0,
                         dtype=F64, lattice_fast_path=fast,
                         global_solver=solver, dense_max_nodes=0,
-                        cg_fixed_iters=20))
+                        cg_fixed_iters=20, collect_residuals=collect))
     s.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
     if model == "arap":
-        s.add_force(LinearTetStrain(mesh.tets, mu, backend="pallas"))
+        s.add_force(LinearTetStrain(mesh.tets, mu))
     else:
         s.add_force(HyperElasticTet(mesh.tets, mu=mu, lam=lam,
-                                    max_iters=4, model=model,
-                                    backend="pallas"))
+                                    max_iters=4, model=model))
     s.add_force(StaticAnchor([0, 1], weight=anchor_w))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()
@@ -82,22 +86,30 @@ def stiffness_sweep(base_sys, mus, model="nh"):
     }
 
 
+def run_sweep(base, sweep, n_scenarios, steps, x0=None, mesh=None):
+    """Step the sweep `steps` times through vmap_step. Returns the
+    (S, n, 3) positions and the last step's aux."""
+    jitter = (lambda x, i: x0[i]) if x0 is not None else None
+    state = batch_state(base.state, n_scenarios, jitter=jitter, mesh=mesh)
+    params = batch_params(base.params, sweep, n_scenarios, system=base)
+    step = vmap_step(base)
+    aux = None
+    for _ in range(steps):
+        state, aux = step(state, params)
+    return np.asarray(state["x"]), aux
+
+
 @pytest.mark.parametrize("solver", ["dia", "ell"])
 def test_sweep_matches_per_scenario_general(solver):
-    """3 stiffness scenarios through the sweep kernel == 3 separate
-    general-path System runs ('dia' exercises the sparse-diagonal sweep
-    matvec; 'ell' the per-row-offset uell sweep planes)."""
+    """3 stiffness scenarios through one vmapped step == 3 separate
+    general-path System runs ('dia' batches the sparse-diagonal values;
+    'ell' the padded-ELL values)."""
     mesh = jittered_beam()
     mus = np.array([4e3, 1e4, 3e4])
     base = build_system(mesh, solver=solver, mu=1e4, lam=2.5e4)
+    assert base._solver_mode == solver
     sweep = stiffness_sweep(base, mus)
-    out = sweep_from_system(base, sweep, len(mus))
-    assert out is not None, "sweep kernel did not engage"
-    stepper, cid = out
-
-    for _ in range(4):
-        stepper.step()
-    xs = np.asarray(stepper.x)[:, cid]
+    xs, _ = run_sweep(base, sweep, len(mus), 4)
 
     for i, mu in enumerate(mus):
         ref = build_system(mesh, solver=solver, mu=mu, lam=2.5 * mu)
@@ -109,22 +121,20 @@ def test_sweep_matches_per_scenario_general(solver):
     assert np.abs(xs[0] - xs[-1]).max() > 1e-4
 
 
-def test_sweep_matches_per_scenario_banded():
-    """Each scenario of the sweep kernel runs the IDENTICAL program the
-    single-scenario BandedStepper runs; only the global-matrix VALUES are
-    assembled differently (batched bincount vs the System's CSR sum), a
-    1-ulp summation-order difference that the Newton backtracking ladder's
-    discrete branches can amplify to ~1e-9 over steps (same caveat as
-    test_banded_single_iteration_exact)."""
+def test_sweep_matches_per_scenario_banded(nh_kernel):
+    """Each scenario of the sweep matches a single-scenario System on the
+    banded layout (D=1). The sweep runs the general path with the Pallas
+    NH kernel in interpret mode — the layout's own prox arithmetic; the
+    global-matrix VALUES are assembled differently (batched bincount vs
+    the System's CSR sum), a 1-ulp summation-order difference that the
+    Newton backtracking ladder's discrete branches can amplify to ~1e-9
+    over steps (same caveat as test_banded_single_iteration_exact)."""
     mesh = jittered_beam(seed=3)
     mus = np.array([5e3, 2e4])
-    base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
-    sweep = stiffness_sweep(base, mus)
-    out = sweep_from_system(base, sweep, len(mus))
-    assert out is not None
-    stepper, cid = out
-    stepper.run(3)
-    xs = np.asarray(stepper.x)[:, cid]
+    with nh_kernel():
+        base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
+        sweep = stiffness_sweep(base, mus)
+        xs, _ = run_sweep(base, sweep, len(mus), 3)
 
     for i, mu in enumerate(mus):
         single = build_system(mesh, solver="dia", mu=mu, lam=2.5 * mu,
@@ -144,12 +154,7 @@ def test_sweep_arap_and_anchor_weights():
     aname = base._force_list[1].name
     anchor_ws = np.array([1000.0, 10.0, 1e-6])
     sweep[(aname, "weight")] = anchor_ws
-    out = sweep_from_system(base, sweep, len(mus))
-    assert out is not None
-    stepper, cid = out
-    for _ in range(4):
-        stepper.step()
-    xs = np.asarray(stepper.x)[:, cid]
+    xs, _ = run_sweep(base, sweep, len(mus), 4)
 
     for i, aw in enumerate(anchor_ws):
         ref = build_system(mesh, solver="dia", mu=2e4, lam=None,
@@ -163,10 +168,9 @@ def test_sweep_arap_and_anchor_weights():
 
 
 def test_sweep_scenario_sharded_matches_unsharded():
-    """Scenarios shard over a 'data' mesh axis (shard_map, zero
-    collectives): 4 scenarios on 2 virtual devices reproduce the
-    unsharded sweep exactly (each device runs the identical per-scenario
-    program on its slice)."""
+    """Scenario state shards over a 'data' mesh axis: 4 scenarios on 2
+    virtual devices reproduce the unsharded sweep (each device runs the
+    identical per-scenario program on its slice)."""
     import jax
     from jax.sharding import Mesh
 
@@ -174,21 +178,16 @@ def test_sweep_scenario_sharded_matches_unsharded():
     mus = np.array([4e3, 8e3, 1.5e4, 3e4])
     base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
     sweep = stiffness_sweep(base, mus)
-
-    ref_st, cid = sweep_from_system(base, sweep, 4)
-    ref_st.run(2)
-    ref_x = np.asarray(ref_st.x)[:, cid]
+    ref_x, _ = run_sweep(base, sweep, 4, 2)
 
     base2 = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
     dmesh = Mesh(np.array(jax.devices()[:2]), ("data",))
-    sh_st, cid2 = sweep_from_system(base2, sweep, 4, mesh=dmesh)
-    sh_st.run(2)
-    sh_x = np.asarray(sh_st.x)[:, cid2]
-    np.testing.assert_allclose(sh_x, ref_x, rtol=0, atol=0)
+    sh_x, _ = run_sweep(base2, sweep, 4, 2, mesh=dmesh)
+    np.testing.assert_allclose(sh_x, ref_x, rtol=0, atol=1e-12)
 
 
 def test_sweep_per_scenario_initial_state():
-    """Per-scenario x0 (jittered drops) thread through the seed DMA."""
+    """Per-scenario x0 (jittered drops) thread through batch_state."""
     mesh = jittered_beam(seed=7)
     mus = np.array([1e4, 1e4])
     base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
@@ -198,12 +197,7 @@ def test_sweep_per_scenario_initial_state():
         mesh.vertices,
         mesh.vertices + 0.02 * rng.randn(*mesh.vertices.shape),
     ])
-    out = sweep_from_system(base, sweep, 2, x0=x0)
-    assert out is not None
-    stepper, cid = out
-    for _ in range(3):
-        stepper.step()
-    xs = np.asarray(stepper.x)[:, cid]
+    xs, _ = run_sweep(base, sweep, 2, 3, x0=x0)
 
     for i in range(2):
         ref = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
@@ -211,48 +205,31 @@ def test_sweep_per_scenario_initial_state():
         for _ in range(3):
             ref.step()
         np.testing.assert_allclose(xs[i], ref.x, rtol=1e-6, atol=1e-8)
-    assert isinstance(stepper, SweepStepper)
 
 
 def test_sweep_in_kernel_residuals():
-    """Sweep mode now emits per-scenario in-kernel residuals: each
-    scenario's (steps, iters) primal/dual residual arrays match the
-    general path instrumented per-scenario — production sweeps can watch
-    every scenario's ADMM convergence at kernel speed."""
+    """Sweeps emit per-scenario residuals: each scenario's (iters,)
+    primal/dual residual arrays from the vmapped step match the general
+    path instrumented per scenario — sweeps can watch every scenario's
+    ADMM convergence."""
     mesh = jittered_beam(seed=5)
     mus = np.array([5e3, 2e4])
-    base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4)
-    base.settings.collect_residuals = True
+    base = build_system(mesh, solver="dia", mu=1e4, lam=2.5e4, collect=True)
     sweep = stiffness_sweep(base, mus)
-    out = sweep_from_system(base, sweep, len(mus))
-    assert out is not None
-    stepper, cid = out
-    assert stepper.base.collect_residuals is True
-
-    for k in range(3):
-        stepper.step()
-    rp = np.asarray(stepper.last_primal)
-    rd = np.asarray(stepper.last_dual)
-    assert rp.shape == (2, 1, base.settings.admm_iters)
+    _, aux = run_sweep(base, sweep, len(mus), 3)
+    rp = np.asarray(aux["primal_residual"])
+    rd = np.asarray(aux["dual_residual"])
+    assert rp.shape == (2, base.settings.admm_iters)
     assert rd.shape == rp.shape
 
     for i, mu in enumerate(mus):
-        n = mesh.n_vertices
-        ref = System(Settings(timestep_s=0.04, admm_iters=6, verbose=0,
-                              dtype=F64, global_solver="dia",
-                              dense_max_nodes=0, cg_fixed_iters=20,
-                              collect_residuals=True))
-        ref.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
-        ref.add_force(HyperElasticTet(mesh.tets, mu=mu, lam=2.5 * mu,
-                                      max_iters=4, backend="pallas"))
-        ref.add_force(StaticAnchor([0, 1], weight=1000.0))
-        ref.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
-        assert ref.initialize()
+        ref = build_system(mesh, solver="dia", mu=mu, lam=2.5 * mu,
+                           collect=True)
         for _ in range(3):
             ref.step()
         np.testing.assert_allclose(
-            rp[i, 0], np.asarray(ref.last_aux["primal_residual"]),
+            rp[i], np.asarray(ref.last_aux["primal_residual"]),
             rtol=1e-5, atol=1e-9)
         np.testing.assert_allclose(
-            rd[i, 0], np.asarray(ref.last_aux["dual_residual"]),
+            rd[i], np.asarray(ref.last_aux["dual_residual"]),
             rtol=1e-5, atol=1e-9)

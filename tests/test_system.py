@@ -414,30 +414,33 @@ def test_dense_refine_improves_f32_solve():
     assert np.isfinite(sys.x).all()
 
 
-def test_fused_cg_backend_matches_xla():
-    """cg_backend='fused' (Pallas CG kernel, interpreted on CPU) reproduces
-    the standard ELL fixed-CG trajectory."""
+def test_dia_pcg_solve_matches_spsolve():
+    """The XLA dia global solve (fixed-iteration Jacobi-PCG over the
+    diagonal matvec) converges to scipy's direct sparse solve of A_hat."""
+    import scipy.sparse.linalg as spla
+
+    from admm_elastic_tpu.core.solver import (
+        _assemble_A_hat_csr,
+        assemble_A_hat_dia,
+        dia_apply,
+        pcg_solve_fixed,
+    )
     from admm_elastic_tpu.geometry import make_beam_tets
 
-    beam = make_beam_tets(4, 3, 3)
-
-    def build(backend):
-        sys = System(Settings(timestep_s=0.04, admm_iters=6, verbose=0,
-                              dtype=jnp.float32, global_solver="ell",
-                              cg_fixed_iters=20, cg_backend=backend))
-        n = beam.n_vertices
-        sys.add_nodes(beam.vertices, np.full(n, 1.0 / n))
-        sys.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
-        sys.add_force(LinearTetStrain(beam.tets, stiffness=1e4))
-        sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
-        assert sys.initialize()
-        for _ in range(4):
-            sys.step()
-        return sys.x
-
-    a = build("xla")
-    b = build("fused")
-    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+    beam = make_beam_tets(5, 4, 3)
+    n = beam.n_vertices
+    masses = np.full(n, 1.0 / n)
+    p, _ = HyperElasticTet(beam.tets, mu=1e4, lam=1e4).build(
+        beam.vertices, masses, 0.04)
+    cparams = {"t": p}
+    offs, dia, diag = assemble_A_hat_dia(n, masses, 0.04, cparams)
+    A = _assemble_A_hat_csr(n, masses, 0.04, cparams).tocsc()
+    b = np.random.default_rng(0).normal(size=(n, 3))
+    ref = np.stack([spla.spsolve(A, b[:, a]) for a in range(3)], 1)
+    x, _ = pcg_solve_fixed(
+        lambda y: dia_apply(y, offs, jnp.asarray(dia)), jnp.asarray(b),
+        jnp.zeros((n, 3)), jnp.asarray(diag), 400)
+    np.testing.assert_allclose(np.asarray(x), ref, rtol=1e-8, atol=1e-10)
 
 
 def test_dia_solver_matches_ell():
@@ -490,29 +493,30 @@ def test_dia_falls_back_for_unstructured():
     assert np.isfinite(sys.x).all()
 
 
-def test_cg_kernel_backend_matches_xla():
-    """cg_backend='kernel' (single-kernel ELL CG) reproduces the xla path."""
+def test_amg_preconditioner_dia_matches_ell():
+    """preconditioner='amg' is the general AMG on every sparse mode: the
+    dia and ell matvecs give the same AMG-PCG trajectory."""
     from admm_elastic_tpu.geometry import make_beam_tets
 
     beam = make_beam_tets(4, 3, 3)
 
-    def build(backend):
+    def build(mode):
         sys = System(Settings(timestep_s=0.04, admm_iters=6, verbose=0,
-                              dtype=jnp.float32, global_solver="ell",
-                              cg_fixed_iters=20, cg_backend=backend))
+                              dtype=jnp.float64, global_solver=mode,
+                              cg_fixed_iters=8, preconditioner="amg"))
         n = beam.n_vertices
         sys.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         sys.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         sys.add_force(LinearTetStrain(beam.tets, stiffness=1e4))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert sys.initialize()
+        assert sys._solver_mode == mode and sys._amg_meta is not None
         for _ in range(4):
             sys.step()
         return sys.x
 
-    a = build("xla")
-    b = build("kernel")
-    np.testing.assert_allclose(b, a, rtol=1e-3, atol=5e-5)
+    np.testing.assert_allclose(build("dia"), build("ell"), rtol=1e-9,
+                               atol=1e-11)
 
 
 def test_dia_assembly_matches_matrix():
@@ -598,10 +602,10 @@ def test_release_weight_zero_precomputed_modes(mode):
 
 
 def test_recompute_weights_refreshes_fast_path_kernel():
-    """Runtime weight edits must flow into an ENGAGED whole-timestep
-    kernel: recompute_weights() re-routes the kernel on the edited
-    params carrying the live plane state. Without this the kernel kept
-    stepping the stale anchor weights silently (round-5 fix)."""
+    """Runtime weight edits must flow into an ENGAGED whole-mesh layout:
+    recompute_weights() re-packs the layout's parameter planes from the
+    edited params, carrying the live state. Without this the layout would
+    keep stepping the stale anchor weights silently."""
     from admm_elastic_tpu.geometry import make_beam_tets
 
     beam = make_beam_tets(8, 4, 4)
@@ -622,27 +626,30 @@ def test_recompute_weights_refreshes_fast_path_kernel():
     x_held = np.asarray(sys.x).copy()
     n_anc = len(np.asarray(sys.params[anchor.name]["indices"]))
     sys.set_force_param(anchor, "weight", np.zeros(n_anc))
+    x_state = np.asarray(sys._lattice.state["x"]).copy()
+    base0 = sys._lattice.base
     sys.recompute_weights()
-    # a NEW stepper carrying the live state
-    assert sys._lattice is not lat0
-    np.testing.assert_array_equal(
-        np.asarray(sys._lattice.state["x"]), np.asarray(lat0.state["x"]))
+    # re-packed planes (a new packed base) carrying the live state
+    assert sys._lattice is lat0 and sys._lattice.base is not base0
+    np.testing.assert_array_equal(np.asarray(sys._lattice.state["x"]),
+                                  x_state)
     for _ in range(10):
         sys.step()
-    # the released beam fell — the stale kernel would have held it
+    # the released beam fell — stale planes would have held it
     assert np.asarray(sys.x)[:, 1].min() < x_held[:, 1].min() - 1e-3
 
 
-def test_residuals_with_fused_kernels_match_unfused():
-    """collect_residuals no longer disables kernel fusion: the ell+pallas
-    (fused local+RHS, 6-wide contribution gather) primal/dual residual
-    trajectories must match the dense+xla unfused path."""
+def test_residuals_with_fused_kernels_match_unfused(nh_kernel):
+    """collect_residuals keeps the fused local+RHS kernel: the ell mode
+    with the Pallas NH kernel (interpret mode; 6-wide contribution
+    gather) gives the primal/dual residual trajectories of the XLA
+    local step."""
     from admm_elastic_tpu.geometry import make_beam_tets
     from admm_elastic_tpu.models import HyperElasticTet
 
     beam = make_beam_tets(4, 3, 3)
 
-    def run(mode, backend):
+    def run(mode):
         sys = System(Settings(timestep_s=0.04, admm_iters=8, verbose=0,
                               global_solver=mode, cg_fixed_iters=40,
                               dtype=jnp.float64, collect_residuals=True))
@@ -650,7 +657,7 @@ def test_residuals_with_fused_kernels_match_unfused():
         sys.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         sys.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         sys.add_force(HyperElasticTet(beam.tets, mu=1e4, lam=4e4, max_iters=5,
-                                      model="nh", backend=backend))
+                                      model="nh"))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert sys.initialize()
         rps, rds = [], []
@@ -660,8 +667,9 @@ def test_residuals_with_fused_kernels_match_unfused():
             rds.append(np.asarray(sys.last_aux["dual_residual"]))
         return np.stack(rps), np.stack(rds), sys.x
 
-    rp_f, rd_f, x_f = run("ell", "pallas")
-    rp_u, rd_u, x_u = run("ell", "xla")
+    with nh_kernel():
+        rp_f, rd_f, x_f = run("ell")
+    rp_u, rd_u, x_u = run("ell")
     assert rp_f.shape == (3, 8) and np.all(rp_f > 0)
     # same global solve, f64: differences are only the local-step kernels'
     # SVD algorithm (Jacobi sweeps vs one-sided) round-off
@@ -670,10 +678,10 @@ def test_residuals_with_fused_kernels_match_unfused():
     np.testing.assert_allclose(x_f, x_u, atol=1e-6)
 
 
-def test_residual_early_exit_masked_ell_pallas():
+def test_residual_early_exit_masked_ell_pallas(nh_kernel):
     """The masked (static-control-flow) early exit works in the fused
-    ell+pallas configuration: iterations freeze once converged and the
-    trajectory matches the full run."""
+    ell + Pallas NH kernel configuration (interpret mode): iterations
+    freeze once converged and the trajectory matches the full run."""
     from admm_elastic_tpu.geometry import make_beam_tets
     from admm_elastic_tpu.models import HyperElasticTet
 
@@ -687,15 +695,16 @@ def test_residual_early_exit_masked_ell_pallas():
         sys.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         sys.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-9)))
         sys.add_force(HyperElasticTet(beam.tets, mu=1e4, lam=1e4, max_iters=5,
-                                      model="nh", backend="pallas"))
+                                      model="nh"))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         assert sys.initialize()
         return sys
 
-    full = build(0.0)
-    full.step()
-    early = build(1e-3)
-    early.step()
+    with nh_kernel():
+        full = build(0.0)
+        full.step()
+        early = build(1e-3)
+        early.step()
     rp = np.asarray(early.last_aux["primal_residual"])
     n_used = int(np.count_nonzero(rp))
     assert 0 < n_used < 40
@@ -751,37 +760,40 @@ def test_grid_renumbering_restores_dia():
 
 
 
-def test_cloth_pallas_backend_matches_xla():
-    """windyflag-shaped scene with the fused triangle-strain kernel
-    (ell + pallas) vs the xla path: same trajectory and residuals."""
+def test_cloth_layout_matches_general_path():
+    """windyflag-shaped scene stepped by the grid-cloth layout
+    (lattice_fast_path: ShardedClothStepper on one device) vs the general
+    ell path: same trajectory and primal residuals."""
     from admm_elastic_tpu.geometry import extract_hinges, make_sym_plane
     from admm_elastic_tpu.models import Bend, LimitedTriangleStrain, WindForce
 
     mesh = make_sym_plane(8, 6)
     n = mesh.n_vertices
 
-    def run(backend, mode):
+    def run(layout, mode):
         sys = System(Settings(timestep_s=0.04, admm_iters=10, verbose=0,
                               dtype=jnp.float64, global_solver=mode,
-                              cg_fixed_iters=40, collect_residuals=True))
+                              cg_fixed_iters=400, collect_residuals="primal",
+                              lattice_fast_path=layout))
         sys.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-        sys.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                                            backend=backend))
+        sys.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
         sys.add_force(Bend(extract_hinges(mesh.faces), 20.0))
         sys.add_force(StaticAnchor([0, 8]))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
         sys.add_explicit_force(WindForce(mesh.faces, direction=(1.5, 0, 0.4)))
         assert sys.initialize()
+        assert (sys._lattice is not None) == layout
         rps = []
         for _ in range(5):
             sys.step()
             rps.append(np.asarray(sys.last_aux["primal_residual"]))
         return sys.x, np.stack(rps)
 
-    x_p, rp_p = run("pallas", "ell")
-    x_x, rp_x = run("xla", "ell")
-    np.testing.assert_allclose(x_p, x_x, atol=1e-7)
-    np.testing.assert_allclose(rp_p, rp_x, rtol=1e-4, atol=1e-10)
+    x_p, rp_p = run(True, "dia")
+    x_x, rp_x = run(False, "ell")
+    # both solves converged (cg400): the layouts differ only in sum order
+    np.testing.assert_allclose(x_p, x_x, atol=1e-8)
+    np.testing.assert_allclose(rp_p, rp_x, rtol=1e-5, atol=1e-10)
 
 
 def test_grid_cloth_dia_matches_ell():
@@ -798,8 +810,7 @@ def test_grid_cloth_dia_matches_ell():
                               dtype=jnp.float64, global_solver=mode,
                               cg_fixed_iters=30))
         sys.add_nodes(mesh.vertices, np.full(n, 0.5 / n))
-        sys.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05,
-                                            backend="pallas"))
+        sys.add_force(LimitedTriangleStrain(mesh.faces, 100.0, 0.95, 1.05))
         sys.add_force(Bend(extract_hinges(mesh.faces), 20.0))
         sys.add_force(StaticAnchor([0, 8]))
         sys.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
@@ -824,10 +835,9 @@ def test_cg_schedule_tuple_runs_all_fixed_paths():
     beam = make_beam_tets(5, 4, 3)
     n = beam.n_vertices
 
-    def build(solver, cg, backend="xla"):
+    def build(solver, cg):
         s = System(_settings(timestep_s=0.04, admm_iters=6,
-                             global_solver=solver, cg_fixed_iters=cg,
-                             cg_backend=backend))
+                             global_solver=solver, cg_fixed_iters=cg))
         s.add_nodes(beam.vertices, np.full(n, 1.0 / n))
         s.add_force(StaticAnchor(np.flatnonzero(beam.vertices[:, 0] < 1e-12)))
         s.add_force(LinearTetStrain(beam.tets, stiffness=1e4))
@@ -837,15 +847,15 @@ def test_cg_schedule_tuple_runs_all_fixed_paths():
             s.step()
         return np.asarray(s.x)
 
-    for solver, backend in (("ell", "xla"), ("ell", "fused"), ("dia", "xla")):
-        flat = build(solver, 120, backend)
-        sched = build(solver, (120, 110), backend)
+    for solver in ("ell", "dia", "cg"):
+        flat = build(solver, 120)
+        sched = build(solver, (120, 110))
         np.testing.assert_allclose(sched, flat, rtol=0, atol=1e-9,
-                                   err_msg=f"{solver}/{backend}")
+                                   err_msg=solver)
         # an actually-uneven schedule stays close to converged
-        uneven = build(solver, (120, 40), backend)
+        uneven = build(solver, (120, 40))
         np.testing.assert_allclose(uneven, flat, rtol=0, atol=1e-6,
-                                   err_msg=f"{solver}/{backend} uneven")
+                                   err_msg=f"{solver} uneven")
 
 
 # ---------------------------------------------------------------- iteration
@@ -934,8 +944,9 @@ def test_anderson_multi_step_stable():
 
 
 def test_nonreference_iteration_disables_fast_paths():
-    """relaxation!=1 / acceleration must NOT engage a whole-timestep kernel
-    (the kernels run the plain reference iteration; ADVICE r3 medium)."""
+    """relaxation!=1 / acceleration / the AMG preconditioner must NOT
+    engage a whole-mesh layout (the layouts run the plain reference
+    iteration with a Jacobi budget)."""
     from admm_elastic_tpu.geometry import make_beam_tets
 
     beam = make_beam_tets(4, 3, 3)
@@ -955,9 +966,10 @@ def test_nonreference_iteration_disables_fast_paths():
     assert build()._lattice is not None  # sanity: the scene DOES qualify
     assert build(relaxation=1.5)._lattice is None
     assert build(acceleration="anderson")._lattice is None
+    assert build(preconditioner="amg", cg_fixed_iters=8)._lattice is None
 
     # and the general path honors the relaxation: same fixed point as the
-    # kernel trajectory at converged iteration counts
+    # layout trajectory at converged iteration counts
     fast = build()
     slow = build(relaxation=1.5)
     for _ in range(3):

@@ -1,11 +1,11 @@
 """Arbitrary-topology (uell) banded fast path.
 
 The per-row-offset ELL format (core/uell.py) removes the last structure
-requirement from the whole-timestep banded kernel: ANY tet mesh — here a
+requirement from the banded whole-timestep layout: ANY tet mesh — here a
 Delaunay tetrahedralization whose A_hat has thousands of distinct
-diagonals, so neither detect_lattice, grid renumbering, nor the dia form
-can apply — runs the full single-kernel ADMM step and matches the general
-ELL-mode System trajectory.
+diagonals, so neither grid renumbering nor the dia form can apply — runs
+the whole ADMM step as one XLA program and matches the general ELL-mode
+System trajectory.
 
 Reference parity target: the topology-agnostic global step of
 /root/reference/deps/admm-elastic-sca/src/system/System.cpp:140 (LDLT has
@@ -176,16 +176,16 @@ def _build_system(pts, tets, fast, floor_y=None, anchors=True,
 
 
 def _engaged_uell(s):
-    from admm_elastic_tpu.core.banded import BandedStepper
+    from admm_elastic_tpu.parallel.banded_spmd import ShardedBandedStepper
 
-    assert s._lattice is not None, "banded fast path did not engage"
-    assert isinstance(s._lattice, BandedStepper), type(s._lattice)
-    assert s._lattice._uell is not None, "expected uell matvec mode"
+    assert s._lattice is not None, "banded layout did not engage"
+    assert isinstance(s._lattice, ShardedBandedStepper), type(s._lattice)
+    assert s._lattice.base._uell is not None, "expected uell matvec mode"
 
 
 @pytest.mark.parametrize("model", ["nh", "stvk"])
 def test_uell_trajectory_matches_general(model):
-    """Unstructured Delaunay mesh: whole-timestep kernel (uell matvec)
+    """Unstructured Delaunay mesh: banded layout (uell matvec)
     vs the general ELL path, 5 steps, f64."""
     pts, tets = _delaunay_mesh()
     gen = _build_system(pts, tets, fast=False, model=model)
@@ -199,7 +199,7 @@ def test_uell_trajectory_matches_general(model):
 
 
 def test_uell_floor_and_per_element_materials():
-    """Floor collision + per-element mu/lam through the uell kernel."""
+    """Floor collision + per-element mu/lam through the uell layout."""
     pts, tets = _delaunay_mesh(seed=5)
     pts[:, 1] += 0.1
     floor_y = float(pts[:, 1].min()) + 0.02
@@ -226,7 +226,7 @@ def test_uell_packed_f32_close_to_f64():
     ref = _build_system(pts, tets, fast=False)
     fast32 = _build_system32(pts, tets)
     _engaged_uell(fast32)
-    assert fast32._lattice._uell_packed, "f32 build must pack planes"
+    assert fast32._lattice.base._uell_packed, "f32 build must pack planes"
     for _ in range(3):
         ref.step()
         fast32.step()
@@ -257,7 +257,7 @@ def _build_system32(pts, tets):
 
 
 def test_uell_run_rollout_matches_steps():
-    """run(n) (windowed rollout) == n x step() for the uell kernel."""
+    """run(n) (windowed rollout) == n x step() for the uell layout."""
     pts, tets = _delaunay_mesh(seed=9, nx=5, ny=4, nz=3)
     a = _build_system(pts, tets, fast=True)
     b = _build_system(pts, tets, fast=True)

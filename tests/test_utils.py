@@ -55,7 +55,7 @@ def _build_banded(fast):
                         global_solver="dia", dense_max_nodes=0))
     s.add_nodes(mesh.vertices, np.full(n, 2.0 / n))
     s.add_force(HyperElasticTet(mesh.tets, mu=1e4, lam=2.5e4,
-                                max_iters=4, backend="pallas"))
+                                max_iters=4))
     s.add_force(StaticAnchor([0, 1]))
     s.add_explicit_force(ExplicitForce(direction=(0, -9.8, 0)))
     assert s.initialize()

@@ -7,7 +7,7 @@ Anderson(m) depths, and prints iterations-to-tolerance. Cited from the
 Settings docstring (core/system.py) — run it to pick α/m per scene; the
 useful range observed here is α∈[1.5,1.7], m∈[2,5].
 
-Usage:  env JAX_PLATFORMS=cpu _AET_CLEAN_ENV=1 JAX_ENABLE_X64=1 \
+Usage:  env JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
             python tools/accel_study.py [--nx 8 --ny 6 --nz 6] [--tol 1e-8]
 """
 

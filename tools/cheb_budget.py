@@ -7,7 +7,7 @@ calibrating), collecting per-iteration primal residuals; compare each
 candidate's per-step FINAL primal residual against a near-exact
 reference solve (deep CG). Matched = worst per-step ratio <= ~1.05.
 
-    env PYTHONPATH=... JAX_PLATFORMS=cpu _AET_CLEAN_ENV=1 \
+    env PYTHONPATH=... JAX_PLATFORMS=cpu \
         JAX_ENABLE_X64=1 python -u tools/cheb_budget.py \
         [--steps 6] [--cand 90,120,150] [--scale 100k|small]
 """
@@ -37,9 +37,9 @@ def build(scale, cg_iters, solver="cg", cheb_iters=None, mg_cycles=10):
         from bench import build_cloth100k
 
         sys_, _ = build_cloth100k(jnp.float64, cg_iters=cg_iters,
-                                  residuals="primal")
+                                  residuals="primal", fast_path=True)
         return ShardedClothStepper(
-            sys_._lattice, jax.make_mesh((1,), ("elem",)),
+            sys_._lattice.base, jax.make_mesh((1,), ("elem",)),
             solver=solver, cheb_iters=cheb_iters,
             mg_cycles=mg_cycles, system=sys_)
     if scale == "delaunay":
@@ -48,7 +48,7 @@ def build(scale, cg_iters, solver="cg", cheb_iters=None, mg_cycles=10):
         from bench import build_delaunay100k
 
         sys_, _ = build_delaunay100k(jnp.float64, cg_iters=cg_iters,
-                                     residuals="primal")
+                                     residuals="primal", fast_path=True)
     elif scale == "100k":
         from bench import build_tet100k
 
@@ -76,7 +76,7 @@ def build(scale, cg_iters, solver="cg", cheb_iters=None, mg_cycles=10):
         assert s.initialize()
         sys_ = s
     return ShardedBandedStepper(
-        sys_._lattice, jax.make_mesh((1,), ("elem",)), backend="xla",
+        sys_._lattice.base, jax.make_mesh((1,), ("elem",)),
         solver=solver, cheb_iters=cheb_iters, mg_cycles=mg_cycles,
         system=sys_)
 

@@ -80,23 +80,12 @@ def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     delaunay = "--delaunay" in sys.argv
     amg = "--amg" in sys.argv
-    uamg = "--uamg" in sys.argv
-    fixed_iters = int(args[0]) if args else (8 if (amg or uamg) else 25)
+    fixed_iters = int(args[0]) if args else (8 if amg else 25)
     steps = int(args[1]) if len(args) > 1 else 5
-    mk = build_delaunay if (delaunay or uamg) else build
+    mk = build_delaunay if delaunay else build
     exact = mk(global_solver="ell", cg_tol=1e-13, cg_max_iters=3000)
-    if uamg:
-        # IN-KERNEL algebraic multigrid (core/uamg.py) through the uell
-        # whole-timestep kernel, f64 interpret mode — the oracle for the
-        # production `--preset delaunay100k --amg` configuration
-        fixed = mk(global_solver="ell", cg_fixed_iters=fixed_iters,
-                   preconditioner="amg", lattice_fast_path=True,
-                   collect_residuals="primal")
-        assert fixed._lattice is not None
-        assert fixed._lattice._uamg_meta_static is not None
-    else:
-        fixed = mk(global_solver="ell", cg_fixed_iters=fixed_iters,
-                   preconditioner="amg" if amg else "jacobi")
+    fixed = mk(global_solver="ell", cg_fixed_iters=fixed_iters,
+               preconditioner="amg" if amg else "jacobi")
     worst = 0.0
     for step in range(steps):
         exact.step()

@@ -7,7 +7,7 @@ research runs offline — this script builds the exact bench mesh,
 assembles A_hat, and packs it under candidate orderings.
 
 Run (CPU, scrubbed env):
-  env PYTHONPATH=/root/repo JAX_PLATFORMS=cpu _AET_CLEAN_ENV=1 \
+  env PYTHONPATH=. JAX_PLATFORMS=cpu \
       python -u tools/uell_order_study.py [--small]
 """
 

@@ -3,7 +3,7 @@
 iterations) in f64, its benchmark CG budget vs a near-exact deep-CG
 solve; prints the per-step final primal residual ratio.
 
-    env PYTHONPATH=. JAX_PLATFORMS=cpu _AET_CLEAN_ENV=1 \
+    env PYTHONPATH=. JAX_PLATFORMS=cpu \
         JAX_ENABLE_X64=1 python -u tools/windyflag_match.py [steps]
 """
 
@@ -21,22 +21,13 @@ def build(cg_override=None):
     from bench import build_windyflag
 
     sysm = build_windyflag(jnp.float64)
+    # route through the grid-cloth layout with the requested budget
     if cg_override is not None:
-        # rebuild the kernel with the deep budget
         sysm.settings.cg_fixed_iters = cg_override
-        sysm.settings.collect_residuals = "primal"
-        from admm_elastic_tpu.core.cloth import cloth_from_system
-
-        out = cloth_from_system(sysm)
-        assert out is not None
-        sysm._lattice, sysm._to_canon = out
-    else:
-        sysm.settings.collect_residuals = "primal"
-        from admm_elastic_tpu.core.cloth import cloth_from_system
-
-        out = cloth_from_system(sysm)
-        assert out is not None
-        sysm._lattice, sysm._to_canon = out
+    sysm.settings.collect_residuals = "primal"
+    sysm.settings.lattice_fast_path = True
+    sysm.initialize()
+    assert sysm._lattice is not None
     return sysm
 
 
